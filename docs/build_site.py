@@ -48,7 +48,7 @@ LAYOUT = jinja2.Template(
     """<!DOCTYPE html>
 <html lang="en"><head><meta charset="utf-8">
 <meta name="viewport" content="width=device-width, initial-scale=1">
-<title>{{ title }} — fastsk-tpu</title>
+<title>{{ title }} — fastsk-jax</title>
 <style>
  body { margin: 0; font: 16px/1.55 system-ui, sans-serif; color: #1a1a1a; }
  .wrap { display: flex; min-height: 100vh; }
@@ -72,7 +72,7 @@ LAYOUT = jinja2.Template(
  a { color: #0969da; }
  {{ pygments_css }}
 </style></head><body><div class="wrap">
-<nav><h1>fastsk-tpu</h1>
+<nav><h1>fastsk-jax</h1>
 {% for href, t in nav %}<a href="{{ href }}"
  {% if href == current %}class="current"{% endif %}>{{ t }}</a>{% endfor %}
 <a href="demo_notebook.html" {% if current == 'demo_notebook.html' %}

@@ -1,4 +1,4 @@
-# Sphinx configuration for the fastsk-tpu documentation site.
+# Sphinx configuration for the fastsk-jax documentation site.
 #
 # Mirrors the reference's docs/conf.py role (a Sphinx site over the same
 # content set: intro, API usage, data formats, FAQ, installation). This
@@ -7,9 +7,9 @@
 # Markdown/rST readable as-is, and `sphinx-build -b html docs docs/_build`
 # works wherever sphinx + myst-parser are installed.
 
-project = "fastsk-tpu"
-author = "fastsk-tpu developers"
-copyright = "2026, fastsk-tpu developers"
+project = "fastsk-jax"
+author = "fastsk-jax developers"
+copyright = "2026, fastsk-jax developers"
 release = "0.4.0"
 
 extensions = [
@@ -28,4 +28,4 @@ master_doc = "index"
 exclude_patterns = ["_build", "demo.ipynb"]
 
 html_theme = "alabaster"
-html_title = "fastsk-tpu: gapped k-mer string kernels on TPU"
+html_title = "fastsk-jax: gapped k-mer string kernels in JAX"

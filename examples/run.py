@@ -33,9 +33,9 @@ def main(argv=None):
     ap.add_argument("--delta", type=float, default=0.025)
     args = ap.parse_args(argv)
 
-    from fastsk_tpu import FastSK, FastaUtility
-    from fastsk_tpu.metrics import roc_auc
-    from fastsk_tpu.svm.linear import CalibratedLinearSVC
+    from fastsk_jax import FastSK, FastaUtility
+    from fastsk_jax.metrics import roc_auc
+    from fastsk_jax.svm.linear import CalibratedLinearSVC
 
     reader = FastaUtility()
     Xtrain, Ytrain = reader.read_data(args.trn)

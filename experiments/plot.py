@@ -257,13 +257,14 @@ def plot_oracle_tools(path, out):
     run_gkm.py / gkm_dna_tests.py figure family, from REAL runs of the
     vendored gkmSVM-2.0/LSGKM builds — results_baselines/
     oracle_comparison.csv): log-scale kernel/train walls per dataset for
-    gkmSVM-2.0 (CPU, 4 threads), LSGKM, and ours (v5e, steady), with
+    gkmSVM-2.0 (CPU, 4 threads), LSGKM, and ours (steady, on the device
+    the CSV names), with
     each bar's AUC annotated."""
     rows = _read(path)
     series = [
         ("gkmSVM-2.0 kernel", "gkm_kernel_s", "gkm_auc", _CAT[1]),
         ("LSGKM train", "lsgkm_train_s", "lsgkm_auc", _CAT[2]),
-        ("ours kernel (TPU)", "ours_kernel_steady_s", "ours_auc", _CAT[0]),
+        ("ours kernel", "ours_kernel_steady_s", "ours_auc", _CAT[0]),
     ]
     names = [f"{r['dataset']}\ng={r['g']} m={r['m']}" for r in rows]
     fig, ax = plt.subplots(figsize=(1.8 + 1.9 * len(rows), 4.0))
@@ -487,7 +488,7 @@ def plot_parity_scatter(json_path, out):
         if abs(x - y) > 0.01:
             ax.annotate(n, (x, y), fontsize=6)
     ax.set_xlabel("published exact AUC")
-    ax.set_ylabel("fastsk-tpu exact AUC")
+    ax.set_ylabel("fastsk-jax exact AUC")
     ax.set_title("AUC parity (labels mark >0.01 outliers,\nall shown reference-side artifacts)", fontsize=9)
     fig.tight_layout()
     fig.savefig(out, dpi=150)
@@ -504,7 +505,7 @@ def plot_auc_bars(json_path, out):
     fig, ax = plt.subplots(figsize=(max(6, 0.45 * len(rows)), 3.5))
     w = 0.4
     ax.bar([i - w / 2 for i in idx], [r["exact_auc"] for r in rows], w,
-           label="fastsk-tpu exact")
+           label="fastsk-jax exact")
     ax.bar([i + w / 2 for i in idx], [r["published_exact"] for r in rows], w,
            label="published exact", alpha=0.7)
     ax.set_xticks(list(idx))
@@ -592,7 +593,7 @@ def plot_auc_panels(json_paths, out):
 
 def plot_speed_panels(csv_path, out):
     """Figure5-style per-dataset kernel-time comparison: measured
-    reference C++ single-thread exact wall vs our steady TPU wall (log
+    reference C++ single-thread exact wall vs our steady device wall (log
     scale), speedup annotated, grouped by domain."""
     rows = _read(csv_path)
     for r in rows:
@@ -608,7 +609,7 @@ def plot_speed_panels(csv_path, out):
            label="reference C++ exact (1 thread, measured)")
     ax.bar([i + w / 2 for i in idx],
            [float(r["ours_steady_s"]) for r in rows], w,
-           label="fastsk-tpu exact (1 chip, steady)")
+           label="fastsk-jax exact (1 chip, steady)")
     for i, r in zip(idx, rows):
         ax.annotate(f'{float(r["speedup"]):.0f}x',
                     (i, float(r["ours_steady_s"])),

@@ -12,9 +12,9 @@ harness.baselines runners CI stubs, and measures:
   - gkmSVM-2.0: gkmsvm_kernel wall (the kernel-timing comparison of the
     paper's Figure 5 family) + end-to-end AUC via train+classify;
   - LSGKM: gkmtrain wall + AUC via gkmpredict;
-  - ours: device-resident exact kernel wall + fused-SMO fit + AUC on the
-    same dataset/params (TPU v5e; theirs is CPU — that hardware gap IS
-    the comparison, matching BASELINE.md's framing).
+  - ours: device-resident exact kernel wall + SMO fit + AUC on the
+    same dataset/params (on the accelerator JAX finds; theirs is CPU —
+    that hardware gap IS the comparison, matching BASELINE.md's framing).
 
 Outputs experiments/results_baselines/oracle_comparison.csv.
 
@@ -37,7 +37,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)) + "/..")
 
-from fastsk_tpu.harness.baselines import (  # noqa: E402
+from fastsk_jax.harness.baselines import (  # noqa: E402
     BaselineNotInstalled,
     GkmRunner,
     LsgkmRunner,
@@ -73,8 +73,8 @@ def log(msg):
 def run_ours(dataset, g, m, C):
     import jax
 
-    from fastsk_tpu import FastSK, FastaUtility
-    from fastsk_tpu.kernel.config import KernelConfig
+    from fastsk_jax import FastSK, FastaUtility
+    from fastsk_jax.kernel.config import KernelConfig
 
     reader = FastaUtility()
     xtr, ytr = reader.read_data(f"{DATA}/{dataset}.train.fasta")
@@ -179,7 +179,7 @@ def main():
                 row["lsgkm_auc"] = f"ERROR:{type(e).__name__}"
                 log(f"LSGKM: {e}")
         else:
-            from fastsk_tpu.harness.baselines import (
+            from fastsk_jax.harness.baselines import (
                 _acc_auc,
                 _read_pred_scores,
             )

@@ -14,7 +14,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 def main():
-    from fastsk_tpu.harness import FastskRunner
+    from fastsk_jax.harness import FastskRunner
 
     t0 = time.time()
     runner = FastskRunner("EP300")

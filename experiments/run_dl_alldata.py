@@ -63,7 +63,7 @@ def main():
         HERE, "results_dl", "alldata_dl_summary.csv"))
     args = ap.parse_args()
 
-    from fastsk_tpu.models.train import run_repeats
+    from fastsk_jax.models.train import run_repeats
 
     with open(os.path.join(HERE, "datasets.csv")) as f:
         registry = list(csv.DictReader(f))

@@ -29,7 +29,7 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
-    from fastsk_tpu.models.train import run_repeats
+    from fastsk_jax.models.train import run_repeats
 
     rows = run_repeats(
         args.model,

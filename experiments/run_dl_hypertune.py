@@ -52,7 +52,7 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
-    from fastsk_tpu.models.train import train_model
+    from fastsk_jax.models.train import train_model
 
     rows = []
     grid = list(itertools.product(args.opts, args.lrs, args.batches))

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Experiment suite — the TPU analogue of results/run_experiments.py.
+"""Experiment suite — the JAX analogue of results/run_experiments.py.
 
 Flag-driven sub-experiments writing one CSV each (consumed by plot.py):
 
@@ -40,7 +40,7 @@ def _writer(path, fields):
 
 
 def g_time(prefix, out, timeout):
-    from fastsk_tpu.harness import time_fastsk
+    from fastsk_jax.harness import time_fastsk
 
     f, w = _writer(out, ["g", "m", "k", "compile_s", "steady_s", "timed_out"])
     with f:
@@ -66,7 +66,7 @@ def g_time(prefix, out, timeout):
 
 
 def m_time(prefix, out, timeout):
-    from fastsk_tpu.harness import time_fastsk
+    from fastsk_jax.harness import time_fastsk
 
     f, w = _writer(out, ["g", "m", "compile_s", "steady_s", "timed_out"])
     with f:
@@ -84,7 +84,7 @@ def m_time(prefix, out, timeout):
 
 
 def i_auc(prefix, out):
-    from fastsk_tpu.harness import FastskRunner
+    from fastsk_jax.harness import FastskRunner
 
     runner = FastskRunner(prefix, data_locations=DATA)
     f, w = _writer(out, ["I", "auc", "acc"])
@@ -99,7 +99,7 @@ def i_auc(prefix, out):
 
 
 def delta_auc(prefix, out):
-    from fastsk_tpu.harness import FastskRunner
+    from fastsk_jax.harness import FastskRunner
 
     runner = FastskRunner(prefix, data_locations=DATA)
     f, w = _writer(out, ["delta", "auc", "iters"])
@@ -113,8 +113,8 @@ def delta_auc(prefix, out):
 
 
 def stdev_vs_i(prefix, out, seeds=5):
-    from fastsk_tpu.api import FastSK
-    from fastsk_tpu.harness import FastskRunner
+    from fastsk_jax.api import FastSK
+    from fastsk_jax.harness import FastskRunner
 
     runner = FastskRunner(prefix, data_locations=DATA)
     f, w = _writer(out, ["seed", "iteration", "stdev"])
@@ -129,7 +129,7 @@ def stdev_vs_i(prefix, out, seeds=5):
 
 
 def g_auc(prefix, out):
-    from fastsk_tpu.harness import FastskRunner
+    from fastsk_jax.harness import FastskRunner
 
     runner = FastskRunner(prefix, data_locations=DATA)
     min_len = min(len(s) for s in runner.train_seq + runner.test_seq)
@@ -152,9 +152,9 @@ def chips(prefix, out):
     """
     import jax
 
-    from fastsk_tpu.harness import FastskRunner
-    from fastsk_tpu.kernel.config import KernelConfig
-    from fastsk_tpu.parallel import default_mesh_shape, make_mesh
+    from fastsk_jax.harness import FastskRunner
+    from fastsk_jax.kernel.config import KernelConfig
+    from fastsk_jax.parallel import default_mesh_shape, make_mesh
 
     runner = FastskRunner(prefix, data_locations=DATA)
     n_dev = len(jax.devices())

@@ -26,9 +26,9 @@ import numpy as np
 
 
 def gridsearch_dataset(prefix, data_locations, regression=False, log=print):
-    from fastsk_tpu.harness import FastskRegressor, FastskRunner
-    from fastsk_tpu.metrics import roc_auc
-    from fastsk_tpu.svm.linear import CalibratedLinearSVC
+    from fastsk_jax.harness import FastskRegressor, FastskRunner
+    from fastsk_jax.metrics import roc_auc
+    from fastsk_jax.svm.linear import CalibratedLinearSVC
 
     if regression:
         runner = FastskRegressor(prefix, data_locations=data_locations)
@@ -74,10 +74,14 @@ def gridsearch_dataset(prefix, data_locations, regression=False, log=print):
 
 
 def main(argv=None):
+    from fastsk_jax.harness.runner import DATA_LOCATIONS
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--datasets", nargs="*", help="dataset prefixes")
     ap.add_argument("--csv", help="registry csv (Dataset,type,g,m,k,C)")
-    ap.add_argument("--data", default="/root/reference/data")
+    ap.add_argument("--data", help="directory of <name>.{train,test}.fasta "
+                    "or pos/neg splits (default: ./data, then the in-repo "
+                    "EP300/KAT2B splits)")
     ap.add_argument("--out", default="gridsearch_results.csv")
     ap.add_argument("--regression", action="store_true")
     args = ap.parse_args(argv)
@@ -93,8 +97,9 @@ def main(argv=None):
     all_rows = []
     for name in names:
         print(f"[gridsearch] {name}")
+        locations = (args.data,) if args.data else DATA_LOCATIONS
         best, rows = gridsearch_dataset(
-            name, (args.data, "data"), regression=args.regression
+            name, locations, regression=args.regression
         )
         all_rows.extend(rows)
         if best:

@@ -28,8 +28,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from fastsk_tpu.api import FastSK
-from fastsk_tpu.io.fasta import FastaUtility
+from fastsk_jax.api import FastSK
+from fastsk_jax.io.fasta import FastaUtility
 
 DATA = os.environ.get("FASTSK_DATA", "/root/reference/data")
 
@@ -76,14 +76,14 @@ def main() -> None:
         Ktr, Kte = K[:ntr, :ntr], K[ntr:, :ntr]
         print(f"{name}: kernel {kernel_s:.1f}s", flush=True)
 
-        from fastsk_tpu.svm.kernel_svm import KernelSVC
+        from fastsk_jax.svm.kernel_svm import KernelSVC
 
         t0 = time.perf_counter()
         clf = KernelSVC(C=C).fit(Ktr, Ytr)
         ovo_acc = float(np.mean(clf.predict(Kte) == Yte))
         ovo_s = time.perf_counter() - t0
 
-        from fastsk_tpu.svm.linear import MulticlassLinearSVC
+        from fastsk_jax.svm.linear import MulticlassLinearSVC
 
         t0 = time.perf_counter()
         lin = MulticlassLinearSVC(C=C).fit(np.array(Ktr), Ytr)

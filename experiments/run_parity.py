@@ -58,7 +58,7 @@ def main(argv=None):
     ap.add_argument("--out", default="parity_results.json")
     args = ap.parse_args(argv)
 
-    from fastsk_tpu.harness import FastskRunner
+    from fastsk_jax.harness import FastskRunner
 
     rows = []
     for name, g, m, C, pub_exact, pub_approx in PUBLISHED:

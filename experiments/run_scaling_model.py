@@ -7,7 +7,7 @@ mistake). What CAN be measured honestly on a virtual mesh, and is
 reported here per engine and device count:
 
 - per-device PERSISTENT memory (addressable shard bytes of the kernel
-  accumulator state) — the pod-scale constraint;
+  accumulator state) — the large-N constraint;
 - per-device WORK assignment (theta passes / strip pairs / row blocks)
   — balance is structural, the counters prove it;
 - the ANALYTIC per-device communication volume of one step, from the
@@ -42,9 +42,9 @@ def dense_row(enc, g, m, mesh, n_dev):
     """Dense theta engine (exact_batch_update_sharded): rows x theta."""
     import math
 
-    from fastsk_tpu.kernel.config import KernelConfig
-    from fastsk_tpu.kernel.engine import DenseGkmEngine
-    from fastsk_tpu.parallel import sharding as shd
+    from fastsk_jax.kernel.config import KernelConfig
+    from fastsk_jax.kernel.engine import DenseGkmEngine
+    from fastsk_jax.parallel import sharding as shd
 
     import jax
     import jax.numpy as jnp
@@ -78,9 +78,9 @@ def dense_row(enc, g, m, mesh, n_dev):
 
 
 def sorted_rows(enc, g, m, mesh, n_dev):
-    from fastsk_tpu.kernel.config import KernelConfig
-    from fastsk_tpu.kernel.sorted_engine import SortedGkmEngine
-    from fastsk_tpu.parallel import sharding as shd
+    from fastsk_jax.kernel.config import KernelConfig
+    from fastsk_jax.kernel.sorted_engine import SortedGkmEngine
+    from fastsk_jax.parallel import sharding as shd
 
     import jax
     import jax.numpy as jnp
@@ -118,10 +118,10 @@ def sorted_rows(enc, g, m, mesh, n_dev):
 
 
 def packed_rows(enc, g, m, mesh, n_dev):
-    from fastsk_tpu.kernel.config import KernelConfig
-    from fastsk_tpu.kernel.pairs_engine import PackedPairsEngine
+    from fastsk_jax.kernel.config import KernelConfig
+    from fastsk_jax.kernel.pairs_engine import PackedPairsEngine
 
-    from fastsk_tpu.parallel import sharding as _shd_mod
+    from fastsk_jax.parallel import sharding as _shd_mod
 
     orig = PackedPairsEngine.TILE
     PackedPairsEngine.TILE = 64
@@ -183,8 +183,8 @@ def packed_rows(enc, g, m, mesh, n_dev):
 
 
 def main():
-    from fastsk_tpu.ops.encode import encode_sequences
-    from fastsk_tpu.parallel import default_mesh_shape, make_mesh
+    from fastsk_jax.ops.encode import encode_sequences
+    from fastsk_jax.parallel import default_mesh_shape, make_mesh
 
     rng = np.random.default_rng(0)
     X = [

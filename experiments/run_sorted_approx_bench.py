@@ -4,14 +4,12 @@ Measures the Monte-Carlo (skip_variance) stream of SortedGkmEngine on the
 real AImed corpus (protein-text, g=11 m=4 per experiments/datasets.csv)
 across theta_batch configurations (tb=1 streams one multi-word
 lax.sort + slab count-matmuls per sampled theta; tb>1 runs a vmapped
-batch per dispatch with a fused batch sum). Measured on TPU v5e the
-pass is MXU-bound on the slab matmuls, so tb=1 wins single-device and
-is the engine default; round 1 (pre int8-digit matmuls, pre
-triangle-blocked grams) measured 0.8 s/pass on this workload.
+batch per dispatch with a fused batch sum). tb=1 is the engine default;
+which wins on a GPU is not measured yet.
 
 All configs must produce bit-identical integer counts (same seed =>
-same shuffled theta stream; int32 adds commute). Timing convention matches
-bench.py: the first call includes compilation, the second is steady
+same shuffled theta stream; int32 adds commute). Timing convention: the
+first call includes compilation, the second is steady
 state; steady wall is what the pass/s rate is computed from.
 
 Writes ``experiments/results_sorted_approx/aimed_sorted_approx.csv``.
@@ -33,10 +31,10 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from fastsk_tpu.io.fasta import FastaUtility
-from fastsk_tpu.kernel.config import KernelConfig
-from fastsk_tpu.kernel.sorted_engine import SortedGkmEngine
-from fastsk_tpu.ops.encode import encode_sequences
+from fastsk_jax.io.fasta import FastaUtility
+from fastsk_jax.kernel.config import KernelConfig
+from fastsk_jax.kernel.sorted_engine import SortedGkmEngine
+from fastsk_jax.ops.encode import encode_sequences
 
 DATA = os.environ.get("FASTSK_DATA", "/root/reference/data")
 

@@ -65,7 +65,7 @@ def main() -> int:
     ap.add_argument("--ref-passes", type=int, default=3)
     args = ap.parse_args()
 
-    from fastsk_tpu.harness import time_fastsk
+    from fastsk_jax.harness import time_fastsk
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     rows = []

@@ -2,6 +2,6 @@
 (src/fastsk/utils.py: Vocabulary :11-14, FastaUtility :50-96).
 """
 
-from fastsk_tpu.io.fasta import FastaUtility, Vocabulary
+from fastsk_jax.io.fasta import FastaUtility, Vocabulary
 
 __all__ = ["FastaUtility", "Vocabulary"]

@@ -1,27 +1,40 @@
-"""fastsk-tpu: a TPU-native gapped k-mer string kernel engine.
+"""Deprecated former name of :mod:`fastsk_jax`.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of QData/FastSK
-(Bioinformatics 2020): gapped k-mer (gkm) string kernels over DNA / protein /
-text sequences, Monte-Carlo approximation with on-line convergence, and an
-SVM stack — engineered for TPU hardware (MXU count-matmuls, mesh sharding)
-rather than translated from the reference's C++/pthreads.
-
-Public surface mirrors the reference Python API::
-
-    from fastsk_tpu import FastSK, FastaUtility
-
-    reader = FastaUtility()
-    Xtrain, Ytrain = reader.read_data("train.fasta")
-    Xtest, Ytest = reader.read_data("test.fasta")
-    fastsk = FastSK(g=10, m=6, approx=True)
-    fastsk.compute_kernel(Xtrain, Xtest)
-    K_train = fastsk.get_train_kernel()
+Existing scripts that import the package, or any module in it, under its
+former name keep working: each such name resolves to the same module
+object as its ``fastsk_jax`` counterpart, and importing this package
+emits a :class:`DeprecationWarning`. Import ``fastsk_jax`` instead.
 """
 
-from .api import FastSK
-from .io.fasta import FastaUtility, Vocabulary
-from .kernel.config import KernelConfig
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+import warnings
 
-__version__ = "0.1.0"
+_OLD = __name__
+_NEW = "fastsk_jax"
 
-__all__ = ["FastSK", "FastaUtility", "Vocabulary", "KernelConfig", "__version__"]
+
+class _AliasFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves ``<former name>.x.y`` to the loaded ``fastsk_jax.x.y``."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.startswith(_OLD + "."):
+            return importlib.util.spec_from_loader(name, self)
+        return None
+
+    def create_module(self, spec):
+        return importlib.import_module(_NEW + spec.name[len(_OLD):])
+
+    def exec_module(self, module):
+        pass
+
+
+warnings.warn(
+    f"the {_OLD} package was renamed {_NEW}; import {_NEW} instead",
+    DeprecationWarning,
+    stacklevel=2,
+)
+sys.meta_path.insert(0, _AliasFinder())
+sys.modules[_OLD] = importlib.import_module(_NEW)

@@ -3,7 +3,7 @@
 This is a from-scratch transcription of the *semantics* of the reference
 counting algorithm (shared.cpp:268-333 countAndUpdateTri summed over every
 C(g,m) position subset, fastsk_kernel.cpp:96-103 cosine normalization), used
-only to validate the TPU engine. It deliberately uses a different algorithm
+only to validate the JAX engines. It deliberately uses a different algorithm
 shape (per-subset unique/bincount + dense outer products) so agreement is
 meaningful.
 """

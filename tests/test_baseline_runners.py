@@ -14,7 +14,7 @@ import stat
 import numpy as np
 import pytest
 
-from fastsk_tpu.harness.baselines import (
+from fastsk_jax.harness.baselines import (
     BaselineNotInstalled,
     BlendedSpectrumRunner,
     GaKCoRunner,

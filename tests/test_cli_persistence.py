@@ -5,12 +5,12 @@ import os
 import numpy as np
 import pytest
 
-from fastsk_tpu import FastSK, KernelConfig
-from fastsk_tpu.cli import main as cli_main
-from fastsk_tpu.io.fasta import load_kernel
-from fastsk_tpu.svm.kernel_svm import KernelSVC, load_svm_model, save_svm_model
+from fastsk_jax import FastSK, KernelConfig
+from fastsk_jax.cli import main as cli_main
+from fastsk_jax.io.fasta import load_kernel
+from fastsk_jax.svm.kernel_svm import KernelSVC, load_svm_model, save_svm_model
 
-from conftest import REFERENCE_DATA, random_ragged_seqs
+from conftest import GOLDEN, random_ragged_seqs
 
 
 def _write_fasta(path, X, Y, alphabet="acgt"):
@@ -47,8 +47,8 @@ def test_cli_small_reference_files(capsys):
     rc = cli_main(
         [
             "-g", "3", "-m", "1", "--json", "-q", "--no-svm",
-            os.path.join(REFERENCE_DATA, "small.train.fasta"),
-            os.path.join(REFERENCE_DATA, "small.test.fasta"),
+            os.path.join(GOLDEN, "small.train.fasta"),
+            os.path.join(GOLDEN, "small.test.fasta"),
         ]
     )
     assert rc == 0
@@ -149,7 +149,7 @@ def test_exact_checkpoint_resume(tmp_path, rng):
         pass
 
     fsk1 = FastSK(g=8, m=4, config=cfg)
-    from fastsk_tpu.kernel import engine as engine_mod
+    from fastsk_jax.kernel import engine as engine_mod
 
     orig = engine_mod.gkm.exact_batch_update
     calls = {"n": 0}
@@ -183,7 +183,7 @@ def test_approx_checkpoint_resume(tmp_path, rng):
     class Stop(Exception):
         pass
 
-    from fastsk_tpu.kernel import engine as engine_mod
+    from fastsk_jax.kernel import engine as engine_mod
 
     orig = engine_mod.gkm.approx_batch_update
     calls = {"n": 0}
@@ -259,9 +259,9 @@ def test_fastsk_predict_tool(tmp_path, rng):
     reproduces the in-process predictions (svm-predict parity, C12)."""
     import numpy as np
 
-    from fastsk_tpu import FastSK
-    from fastsk_tpu.predict_cli import main as predict_main
-    from fastsk_tpu.svm.kernel_svm import save_svm_model
+    from fastsk_jax import FastSK
+    from fastsk_jax.predict_cli import main as predict_main
+    from fastsk_jax.svm.kernel_svm import save_svm_model
 
     X = [rng.integers(1, 5, size=30).tolist() for _ in range(30)]
     Y = [1, -1] * 15

@@ -68,7 +68,7 @@ def test_normalize_multiline(tmp_path):
     with open(dst) as fh:
         assert fh.read() == ">1\nAAATGGGTT\n>-1\nCCC\n"
     # the output round-trips through our reader
-    from fastsk_tpu import FastaUtility
+    from fastsk_jax import FastaUtility
 
     X, Y = FastaUtility().read_data(str(dst))
     assert Y == [1, -1]

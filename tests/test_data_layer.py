@@ -5,11 +5,11 @@ import os
 import numpy as np
 import pytest
 
-from fastsk_tpu import FastaUtility, Vocabulary
-from fastsk_tpu.ops.combinatorics import enumerate_combinations, nchoosek, sample_combinations
-from fastsk_tpu.ops.encode import encode_sequences, validate_g
+from fastsk_jax import FastaUtility, Vocabulary
+from fastsk_jax.ops.combinatorics import enumerate_combinations, nchoosek, sample_combinations
+from fastsk_jax.ops.encode import encode_sequences, validate_g
 
-from conftest import REFERENCE_DATA
+from conftest import GOLDEN
 
 
 def test_vocab_reserves_zero():
@@ -24,7 +24,7 @@ def test_vocab_reserves_zero():
 
 def test_read_small_fixture():
     reader = FastaUtility()
-    X, Y = reader.read_data(os.path.join(REFERENCE_DATA, "small.train.fasta"))
+    X, Y = reader.read_data(os.path.join(GOLDEN, "small.train.fasta"))
     assert Y == [1, 0]
     # "ACACA" -> a=1, c=2 ; "AAACA"
     assert X[0] == [1, 2, 1, 2, 1]
@@ -33,16 +33,16 @@ def test_read_small_fixture():
 
 def test_shared_vocab_across_files():
     reader = FastaUtility()
-    Xtr, _ = reader.read_data(os.path.join(REFERENCE_DATA, "small.train.fasta"))
-    Xte, _ = reader.read_data(os.path.join(REFERENCE_DATA, "small.test.fasta"))
+    Xtr, _ = reader.read_data(os.path.join(GOLDEN, "small.train.fasta"))
+    Xte, _ = reader.read_data(os.path.join(GOLDEN, "small.test.fasta"))
     # same characters -> same codes in both splits
     assert Xte[0] == [1, 2, 1, 2, 1]
-    assert reader.shortest_seq(os.path.join(REFERENCE_DATA, "small.test.fasta")) == 5
+    assert reader.shortest_seq(os.path.join(GOLDEN, "small.test.fasta")) == 5
 
 
 def test_read_dna_matches_expected_alphabet():
     reader = FastaUtility()
-    X, Y = reader.read_data(os.path.join(REFERENCE_DATA, "EP300.test.fasta"))
+    X, Y = reader.read_data(os.path.join(GOLDEN, "ep_sl.test.fasta"))
     flat = {c for seq in X for c in seq}
     assert flat <= {1, 2, 3, 4, 5}  # acgt (+ possible n)
     assert set(Y) <= {0, 1}

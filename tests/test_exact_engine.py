@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from fastsk_tpu.kernel.config import KernelConfig
-from fastsk_tpu.kernel.engine import DenseGkmEngine, cosine_normalize
-from fastsk_tpu.ops.encode import encode_sequences
+from fastsk_jax.kernel.config import KernelConfig
+from fastsk_jax.kernel.engine import DenseGkmEngine, cosine_normalize
+from fastsk_jax.ops.encode import encode_sequences
 
 from conftest import random_ragged_seqs
 from oracle import exact_counts, exact_kernel
@@ -88,10 +88,10 @@ def test_dense_engine_count_split_long_sequences(rng):
     """Windows/sequence beyond the f32-exact bound (p_max > 4095) use the
     8-bit count-digit split; integers must stay exact, incl. heavy
     repetition (large per-bucket counts)."""
-    from fastsk_tpu.kernel.config import KernelConfig
-    from fastsk_tpu.kernel.engine import DenseGkmEngine
-    from fastsk_tpu.ops.combinatorics import enumerate_combinations
-    from fastsk_tpu.ops.encode import encode_sequences
+    from fastsk_jax.kernel.config import KernelConfig
+    from fastsk_jax.kernel.engine import DenseGkmEngine
+    from fastsk_jax.ops.combinatorics import enumerate_combinations
+    from fastsk_jax.ops.encode import encode_sequences
 
     import oracle
 
@@ -111,9 +111,9 @@ def test_dense_engine_count_split_long_sequences(rng):
 
 
 def test_dense_engine_count_split_approx(rng):
-    from fastsk_tpu.kernel.config import KernelConfig
-    from fastsk_tpu.kernel.engine import DenseGkmEngine
-    from fastsk_tpu.ops.encode import encode_sequences
+    from fastsk_jax.kernel.config import KernelConfig
+    from fastsk_jax.kernel.engine import DenseGkmEngine
+    from fastsk_jax.ops.encode import encode_sequences
 
     X = [([1, 2, 3] * 1600)[:4400], rng.integers(1, 4, size=4200).tolist()]
     enc = encode_sequences(X)

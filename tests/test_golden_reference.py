@@ -10,11 +10,9 @@ import os
 import numpy as np
 import pytest
 
-from fastsk_tpu import FastSK, FastaUtility, KernelConfig
+from fastsk_jax import FastSK, FastaUtility, KernelConfig
 
-from conftest import REFERENCE_DATA
-
-GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
+from conftest import GOLDEN
 
 # dump_kernel output for small.train+test.fasta (reference C++, exact mode)
 SMALL_G3M1 = np.array([
@@ -43,8 +41,8 @@ def _compute(train, test, g, m, **cfg):
 @pytest.mark.parametrize("g,m,golden", [(3, 1, SMALL_G3M1), (4, 2, SMALL_G4M2)])
 def test_small_fasta_bit_identical(g, m, golden):
     K = _compute(
-        os.path.join(REFERENCE_DATA, "small.train.fasta"),
-        os.path.join(REFERENCE_DATA, "small.test.fasta"),
+        os.path.join(GOLDEN, "small.train.fasta"),
+        os.path.join(GOLDEN, "small.test.fasta"),
         g, m,
     )
     np.testing.assert_array_equal(K, golden)

@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from fastsk_tpu.io.readers import ArabicUtility, DslUtility
-from fastsk_tpu.metrics import (
+from fastsk_jax.io.readers import ArabicUtility, DslUtility
+from fastsk_jax.metrics import (
     average_precision,
     balanced_accuracy,
     binary_class_cross_validation,
 )
-from fastsk_tpu.svm.lasso import Lasso, LassoCV
+from fastsk_jax.svm.lasso import Lasso, LassoCV
 
 from conftest import random_ragged_seqs
 
@@ -92,7 +92,7 @@ def test_fastsk_runner_on_reference_slice(tmp_path, rng):
     _write_fasta(tmp_path / "syn.train.fasta", Xtr, Ytr)
     _write_fasta(tmp_path / "syn.test.fasta", Xte, Yte)
 
-    from fastsk_tpu.harness import FastskRunner
+    from fastsk_jax.harness import FastskRunner
 
     runner = FastskRunner("syn", data_locations=(str(tmp_path),))
     res = runner.train_and_test(g=6, m=2, C=1.0)
@@ -106,7 +106,7 @@ def test_fastsk_regressor(tmp_path, rng):
     X, _ = ti.make_synthetic_motif_data(rng, 40, 26)
     # construct labels correlated with motif-kernel structure: y = row sums
     # of the exact kernel (a smooth function of sequence content)
-    from fastsk_tpu import FastSK
+    from fastsk_jax import FastSK
 
     fsk = FastSK(g=6, m=2)
     fsk.compute_train(X)
@@ -118,7 +118,7 @@ def test_fastsk_regressor(tmp_path, rng):
         for seq, label in zip(X[60:], yfull[60:]):
             f.write(f">{label}\n" + "".join("acgt"[v - 1] for v in seq) + "\n")
 
-    from fastsk_tpu.harness import FastskRegressor
+    from fastsk_jax.harness import FastskRegressor
 
     reg = FastskRegressor("reg", data_locations=(str(tmp_path),))
     r2 = reg.train_and_test(g=6, m=2, approx=False)
@@ -126,7 +126,7 @@ def test_fastsk_regressor(tmp_path, rng):
 
 
 def test_multiclass_linear_svc(rng):
-    from fastsk_tpu.svm.linear import MulticlassLinearSVC
+    from fastsk_jax.svm.linear import MulticlassLinearSVC
 
     n, d = 160, 6
     y = rng.integers(0, 4, n)
@@ -140,7 +140,7 @@ def test_multiclass_linear_svc(rng):
 
 def test_score_report(rng):
     import test_integration as ti
-    from fastsk_tpu import FastSK
+    from fastsk_jax import FastSK
 
     Xtr, Ytr = ti.make_synthetic_motif_data(rng, 25, 24)
     Xte, Yte = ti.make_synthetic_motif_data(rng, 10, 24)
@@ -169,7 +169,7 @@ def test_multiclass_runner_end_to_end(tmp_path, rng):
     (tmp_path / "tr.tsv").write_text(make(60))
     (tmp_path / "te.tsv").write_text(make(24))
 
-    from fastsk_tpu.harness.runner import FastskMulticlassRunner
+    from fastsk_jax.harness.runner import FastskMulticlassRunner
 
     runner = FastskMulticlassRunner(
         str(tmp_path / "tr.tsv"), str(tmp_path / "te.tsv")
@@ -183,8 +183,8 @@ def test_arabic_runner_kernel_ovo(tmp_path, rng):
     through the kernel one-vs-one path end to end — the reference routes
     these sets through sklearn OvR only (test/utils.py:307-369); here the
     precomputed-kernel OvO handles them natively."""
-    from fastsk_tpu.harness.runner import FastskMulticlassRunner
-    from fastsk_tpu.io.readers import ArabicUtility
+    from fastsk_jax.harness.runner import FastskMulticlassRunner
+    from fastsk_jax.io.readers import ArabicUtility
 
     motifs = {"MSA": [1, 1, 2, 2, 1, 1], "CAI": [3, 3, 4, 4, 3, 3],
               "BEI": [5, 6, 5, 6, 5, 6]}
@@ -229,7 +229,7 @@ def test_multiclass_runner_kernel_ovo(tmp_path, rng):
     (tmp_path / "tr.tsv").write_text(make(60))
     (tmp_path / "te.tsv").write_text(make(24))
 
-    from fastsk_tpu.harness.runner import FastskMulticlassRunner
+    from fastsk_jax.harness.runner import FastskMulticlassRunner
 
     runner = FastskMulticlassRunner(
         str(tmp_path / "tr.tsv"), str(tmp_path / "te.tsv")

@@ -1,14 +1,12 @@
 """End-to-end pipeline tests: fasta -> kernel -> SVM -> metrics."""
 
-import os
 
 import numpy as np
 import pytest
 
-from fastsk_tpu import FastSK, FastaUtility
-from fastsk_tpu.svm.linear import train_eval_linear
+from fastsk_jax import FastSK, FastaUtility
+from fastsk_jax.svm.linear import train_eval_linear
 
-from conftest import REFERENCE_DATA
 
 
 def make_synthetic_motif_data(rng, n_per_class, length, alphabet=4, seed=99):
@@ -115,9 +113,9 @@ def test_approx_seed_determinism(rng):
 def test_ep300_run_check_parity():
     """The reference CI gate (test/run_check.py): EP300, g=10 m=6 approx,
     calibrated linear SVM on the EKM, AUC >= 0.9."""
-    reader = FastaUtility()
-    Xtr, Ytr = reader.read_data(os.path.join(REFERENCE_DATA, "EP300.train.fasta"))
-    Xte, Yte = reader.read_data(os.path.join(REFERENCE_DATA, "EP300.test.fasta"))
+    from fastsk_jax.harness.runner import read_split
+
+    Xtr, Ytr, Xte, Yte = read_split("EP300")
     fsk = FastSK(g=10, m=6, approx=True)
     fsk.compute_kernel(Xtr, Xte, Ytr, Yte)
     res = train_eval_linear(
@@ -132,14 +130,50 @@ def test_ep300_run_check_parity():
 
 def test_reference_import_alias():
     """The reference's documented import surface (src/fastsk/__init__.py:1-2,
-    src/fastsk/utils.py) works verbatim against the TPU engine — existing
+    src/fastsk/utils.py) works verbatim against the JAX engine — existing
     user scripts switch without edits."""
     from fastsk import FastSK as AliasFastSK
     from fastsk import FastaUtility as AliasFasta
     from fastsk.utils import FastaUtility as UtilsFasta, Vocabulary
 
-    import fastsk_tpu
+    import fastsk_jax
 
-    assert AliasFastSK is fastsk_tpu.FastSK
-    assert AliasFasta is UtilsFasta is fastsk_tpu.FastaUtility
-    assert Vocabulary is fastsk_tpu.Vocabulary
+    assert AliasFastSK is fastsk_jax.FastSK
+    assert AliasFasta is UtilsFasta is fastsk_jax.FastaUtility
+    assert Vocabulary is fastsk_jax.Vocabulary
+
+
+def test_former_package_name_alias():
+    """The package's former name (the one other ``fastsk_*`` package
+    beside ``fastsk_jax``) still imports, submodules included, as the
+    same module objects, with a DeprecationWarning."""
+    import pathlib
+    import subprocess
+    import sys
+
+    import fastsk_jax
+
+    root = pathlib.Path(fastsk_jax.__file__).resolve().parent.parent
+    (old,) = [
+        p.name for p in root.glob("fastsk_*")
+        if p.name != "fastsk_jax" and (p / "__init__.py").exists()
+    ]
+    code = (
+        "import warnings, fastsk_jax, fastsk_jax.kernel.config as c\n"
+        "with warnings.catch_warnings(record=True) as w:\n"
+        "    warnings.simplefilter('always')\n"
+        f"    import {old}\n"
+        f"    from {old}.kernel.config import KernelConfig\n"
+        f"    from {old}.api import FastSK\n"
+        f"    import {old}.ops.pairs_pallas as pp\n"
+        f"assert {old} is fastsk_jax and KernelConfig is c.KernelConfig\n"
+        "assert FastSK is fastsk_jax.FastSK\n"
+        "import fastsk_jax.ops.pairs_pallas as pp2\n"
+        "assert pp is pp2\n"
+        "assert any(x.category is DeprecationWarning for x in w)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=root, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr

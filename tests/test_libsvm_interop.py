@@ -1,4 +1,4 @@
-"""True cross-tool interop: models written by fastsk_tpu.svm.libsvm_io are
+"""True cross-tool interop: models written by fastsk_jax.svm.libsvm_io are
 loaded and predicted by the reference's UNMODIFIED LIBSVM fork
 (tools/reference_oracle/svm_oracle links libsvm-code/svm.cpp verbatim:
 svm_load_model svm.cpp:2903-3010, svm_predict_values svm.cpp:2521-2616,
@@ -12,7 +12,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from fastsk_tpu.svm.kernel_svm import (
+from fastsk_jax.svm.kernel_svm import (
     EpsilonSVR,
     KernelSVC,
     NuSVC,

@@ -20,7 +20,7 @@ def fasta_pair(tmp_path, rng):
 
 
 def test_charcnn_learns_motifs(fasta_pair):
-    from fastsk_tpu.models.train import train_model
+    from fastsk_jax.models.train import train_model
 
     res = train_model("cnn", *fasta_pair, epochs=12, batch_size=16, seed=0)
     assert res.auc > 0.8
@@ -31,7 +31,7 @@ def test_lstm_forward_and_masking(rng):
     import jax
     import jax.numpy as jnp
 
-    from fastsk_tpu.models import SeqLSTM
+    from fastsk_jax.models import SeqLSTM
 
     model = SeqLSTM(vocab_size=6, hidden_size=16, embedding_size=8)
     toks = jnp.asarray(rng.integers(1, 5, size=(3, 12)), dtype=jnp.int32)
@@ -46,14 +46,14 @@ def test_lstm_forward_and_masking(rng):
 
 
 def test_lstm_learns(fasta_pair):
-    from fastsk_tpu.models.train import train_model
+    from fastsk_jax.models.train import train_model
 
     res = train_model("lstm", *fasta_pair, epochs=15, batch_size=16, seed=0)
     assert res.history[-1]["loss"] < res.history[0]["loss"]
 
 
 def test_run_repeats_fractions(fasta_pair):
-    from fastsk_tpu.models.train import run_repeats
+    from fastsk_jax.models.train import run_repeats
 
     rows = run_repeats(
         "cnn", *fasta_pair, seeds=2, train_fractions=(0.5, 1.0), epochs=2,

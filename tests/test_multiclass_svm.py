@@ -3,15 +3,15 @@
 import numpy as np
 import pytest
 
-from fastsk_tpu.svm.kernel_svm import (
+from fastsk_jax.svm.kernel_svm import (
     EpsilonSVR,
     KernelSVC,
     NuSVC,
     OneClassSVM,
     save_svm_model,
 )
-from fastsk_tpu.svm.libsvm_io import load_libsvm_model, save_libsvm_model
-from fastsk_tpu.svm.ovo import group_labels, multiclass_probability
+from fastsk_jax.svm.libsvm_io import load_libsvm_model, save_libsvm_model
+from fastsk_jax.svm.ovo import group_labels, multiclass_probability
 
 
 def make_multiclass(rng, n_per=30, d=5, nc=4, sep=2.5):
@@ -202,7 +202,7 @@ def test_libsvm_format_is_parseable_header(rng, tmp_path):
 
 
 def _tiny_fastsk(rng, labels):
-    from fastsk_tpu import FastSK
+    from fastsk_jax import FastSK
 
     X = [rng.integers(1, 5, size=30).tolist() for _ in range(len(labels))]
     fsk = FastSK(g=4, m=1)
@@ -284,8 +284,8 @@ def test_webkb_multiclass_runner_kernel_ovo(tmp_path):
     gkm kernel, and the FASTA multiclass reader must accept labels 0-3."""
     from sklearn.svm import SVC
 
-    from fastsk_tpu.harness.runner import FastskMulticlassRunner
-    from fastsk_tpu.svm.kernel_svm import KernelSVC
+    from fastsk_jax.harness.runner import FastskMulticlassRunner
+    from fastsk_jax.svm.kernel_svm import KernelSVC
 
     train = _webkb_slice(tmp_path, "webkb-train.fasta", per_class=12)
     test = _webkb_slice(tmp_path, "webkb-test.fasta", per_class=6)
@@ -296,7 +296,7 @@ def test_webkb_multiclass_runner_kernel_ovo(tmp_path):
     assert 0.0 <= res["acc"] <= 1.0
 
     # cross-check the OvO path against sklearn on the identical kernel
-    from fastsk_tpu import FastSK
+    from fastsk_jax import FastSK
 
     fsk = FastSK(g=4, m=1)
     fsk.compute_kernel(runner.train_seq, runner.test_seq)

@@ -5,22 +5,55 @@ import os
 import numpy as np
 import pytest
 
-from fastsk_tpu.io.fasta import FastaUtility
-from fastsk_tpu.native import loader
+from fastsk_jax.io.fasta import FastaUtility
+from fastsk_jax.native import loader
 
-from conftest import REFERENCE_DATA
-
-pytestmark = pytest.mark.skipif(
-    not loader.available(), reason="native toolchain unavailable"
-)
+from conftest import CORPORA, GOLDEN
 
 
-@pytest.mark.parametrize(
-    "name", ["small.train.fasta", "EP300.test.fasta", "1.1.test.fasta",
-             "AImed.train.fasta"]
-)
-def test_native_matches_python_reader(name):
-    path = os.path.join(REFERENCE_DATA, name)
+def _labeled_copy(tmp_path, name: str) -> str:
+    """A labeled (``>1`` / ``>0``) FASTA of the in-repo corpus split
+    ``<name>.{pos,neg}.fasta``; labels come from the file names."""
+    out = tmp_path / f"{name}.fasta"
+    with open(out, "w") as dst:
+        for label, part in ((1, "pos"), (0, "neg")):
+            with open(os.path.join(CORPORA, f"{name}.{part}.fasta")) as src:
+                for line in src:
+                    line = line.strip()
+                    if line and not line.startswith(">"):
+                        dst.write(f">{label}\n{line}\n")
+    return str(out)
+
+
+def _seeded_fasta(tmp_path, name: str, alphabet: str, n: int, seed: int) -> str:
+    rng = np.random.default_rng(seed)
+    out = tmp_path / name
+    with open(out, "w") as f:
+        for _ in range(n):
+            seq = "".join(rng.choice(list(alphabet), size=rng.integers(20, 120)))
+            f.write(f">{rng.integers(0, 2)}\n{seq}\n")
+    return str(out)
+
+
+# in-repo stand-ins for the reference corpora of the same names: the
+# small split, an EP300 slice, a protein-alphabet and a text-alphabet file
+_FIXTURES = {
+    "small.train.fasta": lambda tmp: os.path.join(GOLDEN, "small.train.fasta"),
+    "EP300.test.fasta": lambda tmp: os.path.join(GOLDEN, "ep_sl.test.fasta"),
+    "1.1.test.fasta": lambda tmp: _seeded_fasta(
+        tmp, "1.1.test.fasta", "ACDEFGHIKLMNPQRSTVWY", 60, 11
+    ),
+    "AImed.train.fasta": lambda tmp: _seeded_fasta(
+        tmp, "AImed.train.fasta",
+        "abcdefghijklmnopqrstuvwxyz ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789.,-()",
+        60, 12,
+    ),
+}
+
+
+@pytest.mark.parametrize("name", list(_FIXTURES))
+def test_native_matches_python_reader(name, tmp_path):
+    path = _FIXTURES[name](tmp_path)
     py = FastaUtility(use_native=False)
     Xp, Yp = py.read_data(path)
     nat = FastaUtility(use_native=True)
@@ -33,12 +66,14 @@ def test_native_matches_python_reader(name):
 
 
 def test_native_shared_vocab_across_files():
+    train = os.path.join(GOLDEN, "ep_sl.train.fasta")
+    test = os.path.join(GOLDEN, "ep_sl.test.fasta")
     nat = FastaUtility(use_native=True)
-    Xtr, _ = nat.read_data(os.path.join(REFERENCE_DATA, "EP300.train.fasta"))
-    Xte, _ = nat.read_data(os.path.join(REFERENCE_DATA, "EP300.test.fasta"))
+    Xtr, _ = nat.read_data(train)
+    Xte, _ = nat.read_data(test)
     py = FastaUtility(use_native=False)
-    Xtr_p, _ = py.read_data(os.path.join(REFERENCE_DATA, "EP300.train.fasta"))
-    Xte_p, _ = py.read_data(os.path.join(REFERENCE_DATA, "EP300.test.fasta"))
+    Xtr_p, _ = py.read_data(train)
+    Xte_p, _ = py.read_data(test)
     assert Xtr == Xtr_p and Xte == Xte_p
 
 
@@ -61,14 +96,15 @@ def test_native_falls_back_on_unicode(tmp_path):
     assert Y == [1] and len(X[0]) == 6
 
 
-def test_native_parse_speed_sanity():
-    """The native parser should beat the Python reader on a real file.
+def test_native_parse_speed_sanity(tmp_path):
+    """The native parser should beat the Python reader on a real file
+    (the 6,318-sequence KAT2B training split).
 
     Best-of-3 on both sides to keep the comparison robust under noisy
     shared-machine load; the bound is still strict (native must win)."""
     import time
 
-    path = os.path.join(REFERENCE_DATA, "EP300_47848.train.fasta")
+    path = _labeled_copy(tmp_path, "KAT2B.train")
     loader.get_library()  # build outside the timed region
 
     def best_of(fn, n=3):

@@ -2,7 +2,7 @@
 
 import io
 
-from fastsk_tpu.utils.observe import (
+from fastsk_jax.utils.observe import (
     Progress,
     enable_compilation_cache,
     profiler_trace,
@@ -36,59 +36,36 @@ def test_profiler_trace_noop_without_dir():
     assert x == 1
 
 
-def test_enable_compilation_cache_env_disable(monkeypatch, tmp_path):
-    monkeypatch.setenv("FASTSK_COMPILATION_CACHE", "0")
-    assert enable_compilation_cache() == ""
-    monkeypatch.setenv("FASTSK_COMPILATION_CACHE", str(tmp_path / "cc"))
-    got = enable_compilation_cache()
-    assert got == str(tmp_path / "cc")
+def test_compilation_cache_honours_env_dir(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, that directory is the cache and
+    the code sets no other."""
+    import jax
+
+    from fastsk_jax.utils import observe
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cc"))
+    assert enable_compilation_cache() == str(tmp_path / "cc")
+    assert observe.compilation_cache_dir() == str(tmp_path / "cc")
+    assert jax.config.jax_compilation_cache_dir == before
 
 
-# ------------------------------------------------------------- roofline
+def test_compilation_cache_default_is_fixed_in_checkout(monkeypatch):
+    """Without the env var the cache is ``.jax_cache`` in the checkout —
+    the same path every time, never under ``~/.cache``."""
+    import os
 
+    import jax
 
-def test_roofline_device_classification_and_mfu():
-    from fastsk_tpu.utils import roofline
+    from fastsk_jax.utils import observe
 
-    class FakeDev:
-        def __init__(self, kind):
-            self.device_kind = kind
-
-    assert roofline.classify_device(FakeDev("TPU v5 lite")) == "v5e"
-    assert roofline.classify_device(FakeDev("TPU v5p")) == "v5p"
-    assert roofline.classify_device(FakeDev("TPU v4")) == "v4"
-    assert roofline.classify_device(FakeDev("TPU v6e")) == "v6e"
-    assert roofline.classify_device(FakeDev("cpu")) is None
-
-    v5e = FakeDev("TPU v5 lite")
-    # 197e12 FLOPs in 1 s at bf16 = exactly peak
-    assert abs(roofline.mfu(197e12, 1.0, v5e, "bf16") - 1.0) < 1e-9
-    assert roofline.mfu(1e12, 1.0, FakeDev("cpu")) is None
-    line = roofline.format_mfu_line("x", 197e12, 2.0, v5e, "bf16")
-    assert "50.0%" in line and "v5e" in line
-
-
-def test_roofline_pairs_engine_flops_exact_tiles():
-    """FLOP count matches a brute-force tile enumeration on a real
-    engine instance (CPU/XLA backend)."""
-    from fastsk_tpu.io.fasta import FastaUtility
-    from fastsk_tpu.kernel.config import KernelConfig
-    from fastsk_tpu.kernel.pairs_engine import PairsGkmEngine
-    from fastsk_tpu.ops.encode import encode_sequences
-    from fastsk_tpu.utils import roofline
-
-    reader = FastaUtility()
-    Xtr, _ = reader.read_data("/root/reference/data/small.train.fasta")
-    enc = encode_sequences(Xtr, Xtr)
-    eng = PairsGkmEngine(enc, 3, 1, KernelConfig())
-    rl = roofline.pairs_engine_flops(eng)
-    ti = eng.c_i * eng.p_pad
-    tj = eng.c_j * eng.p_pad
-    f = eng.g * eng.alpha
-    macs = 0
-    for i in range(eng.n_pad // eng.c_i):
-        for j in range(eng.n_pad // eng.c_j):
-            if (j + 1) * tj > i * ti:
-                macs += ti * tj * f
-    assert rl["flops"] == 2.0 * macs
-    assert rl["ai"] > 0 and rl["bytes_hbm"] > 0
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        path = enable_compilation_cache()
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert path == os.path.join(repo, ".jax_cache")
+        assert path == observe.compilation_cache_dir()
+        assert jax.config.jax_compilation_cache_dir == path
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

@@ -2,17 +2,17 @@
 
 Each test pins a bound that, if violated, silently corrupts exact integer
 kernels: the packed engine's stage-2 cumsum (ops/pairs_packed.py), the
-count-split theta batch (kernel/engine.py), the Pallas stage-1 sums
-(ops/pairs_pallas.py), the checkpoint digest, and the converged flag.
+count-split theta batch (kernel/engine.py), the fused kernel's column
+sums (ops/pairs_pallas.py), the checkpoint digest, and the converged flag.
 """
 
 import numpy as np
 import pytest
 
-from fastsk_tpu import FastSK, KernelConfig
-from fastsk_tpu.kernel.engine import DenseGkmEngine
-from fastsk_tpu.kernel.pairs_engine import PackedPairsEngine
-from fastsk_tpu.ops.encode import encode_sequences
+from fastsk_jax import FastSK, KernelConfig
+from fastsk_jax.kernel.engine import DenseGkmEngine
+from fastsk_jax.kernel.pairs_engine import PackedPairsEngine
+from fastsk_jax.ops.encode import encode_sequences
 
 import oracle
 from conftest import random_ragged_seqs
@@ -24,7 +24,7 @@ def test_packed_tile_not_widened_for_long_sequences(rng):
     the safe tile for long sequences and may widen only for short ones.
 
     g=10, m=6: C(10,4) = 210 needs two base-128 planes but one base-256
-    plane, so the int8-landing preference does NOT kick in and the
+    plane, so the base-128 preference does NOT kick in and the
     digit base stays 256 — the configuration where the cumsum bound
     actually binds."""
     # p_max in (2048, 2901]: digit_base stays 256 and a 4096 tile would
@@ -47,7 +47,7 @@ def test_packed_tile_not_widened_for_long_sequences(rng):
 
 def test_packed_digit_base_128_preference(rng):
     """C(g, k) <= 127 keeps one plane at base 128, so the engine picks
-    the int8-MXU landing base; the cumsum/plane bounds (which only
+    base-128 digits; the cumsum/plane bounds (which only
     loosen with the smaller base) must still hold after any widening."""
     X_long = [rng.integers(1, 5, size=2500).tolist() for _ in range(3)]
     eng = PackedPairsEngine(encode_sequences(X_long), 8, 4, KernelConfig())
@@ -70,72 +70,97 @@ def test_count_split_theta_batch_capped():
 
 
 def test_pallas_interpret_large_binomial_repetitive():
-    """g=20, m=10 on all-identical sequences: every window pair matches all
-    positions, so stage-1 partial sums reach p_pad * C(20,10) ~ 1.9e7 >
-    2^24 — exact only because stage 1 runs in int32 now."""
-    from fastsk_tpu.ops import pairs
-    from fastsk_tpu.ops.pairs_pallas import pairs_kernel_blocks
-    import jax.numpy as jnp
+    """g=20, m=10 on all-identical sequences: every window pair matches
+    all positions, so each entry is p^2 * C(20,10). The fused kernel's
+    int32 falling factorial cannot hold 20!/10!, so its exactness bounds
+    refuse the shape and the engine runs XLA strips — which must still
+    produce the exact integers."""
     import math
+
+    from fastsk_jax.kernel.pairs_engine import PairsGkmEngine
+    from fastsk_jax.ops.pairs_pallas import kernel_fits
 
     g, m = 20, 10
     k = g - m
     L = 115
-    X = [[1] * L, [1] * L]
-    enc = encode_sequences(X)
+    enc = encode_sequences([[1] * L, [1] * L])
     p = L - g + 1  # 96 true windows per sequence
-    p_enc = enc.max_len - g + 1
-    p_pad = -(-p_enc // 8) * 8
-    assert p_pad * math.comb(g, k) > 2**24  # in the formerly-unsafe region
-    x = pairs.onehot_windows(
-        jnp.asarray(enc.ids), jnp.asarray(enc.lengths),
-        g=g, alpha=enc.hash_base, code_min=enc.code_min, p_pad=p_pad,
-    ).reshape(2 * p_pad, g * enc.hash_base)
-    blocks = pairs_kernel_blocks(
-        x, g=g, k=k, p_pad=p_pad, c_ti=1, c_tj=2, interpret=True
-    )
-    upper = np.asarray(blocks, dtype=np.int64).transpose(0, 2, 1, 3).reshape(2, 2)
-    expect = p * p * math.comb(g, k)
-    assert upper[0, 0] == expect
-    assert upper[0, 1] == expect
-    assert upper[1, 1] == expect
+    assert not kernel_fits(g, k, 96)
+    eng = PairsGkmEngine(enc, g, m, KernelConfig())
+    assert eng.backend == "xla"
+    assert eng.p_pad * math.comb(g, k) > 2**24  # f32 sums would round
+    K = eng.exact()
+    assert (K == p * p * math.comb(g, k)).all()
 
 
-def test_pallas_deferred_division_near_bound():
-    """The deferred-/k! path (headline shape family) at a worst case
-    near its error bound: g=16 m=10 on all-identical sequences drives
-    every stage-1 sum to p * C(16,6) ~ 1.48e6 — within 4% of the EP300
-    headline's maximum and under the 2^21 guard — where the s1-level
-    round-multiply must still recover the exact integer."""
+@pytest.mark.parametrize(
+    "g,m,L,bt,grp",
+    [
+        (18, 12, 200, 64, 1),  # one /k! per 64-row tile
+        (25, 20, 64, 16, 2),  # tiles {0, 1} share one /k!, tile 2 alone
+    ],
+)
+def test_pallas_deferred_division_near_bound(g, m, L, bt, grp):
+    """The kernel's deferred /k! at a worst case near its error bound:
+    all-identical sequences drive the column sum of every full group of
+    ``grp`` row tiles to ``grp * bt * C(g, k)``, between 2^20 and the
+    2^21 guard, where the one round-multiply per group column must still
+    recover the exact integer (interpret mode)."""
     import math
 
     import jax.numpy as jnp
 
-    from fastsk_tpu.ops import pairs
-    from fastsk_tpu.ops.pairs_pallas import pairs_kernel_blocks
+    from fastsk_jax.ops import pairs
+    from fastsk_jax.ops.pairs_pallas import (
+        kernel_fits,
+        pairs_upper,
+        tile_rows,
+        tiles_per_division,
+    )
 
-    g, m = 16, 10
     k = g - m
-    L = 200
-    X = [[1] * L, [1] * L]
-    enc = encode_sequences(X)
-    p = L - g + 1  # 185 true windows per sequence
-    p_pad = -(-(enc.max_len - g + 1) // 8) * 8
+    enc = encode_sequences([[1] * L, [1] * L])
+    p = L - g + 1
+    p_pad = -(-p // 16) * 16
     ffmax = math.factorial(g) // math.factorial(g - k)
-    assert ffmax < 2**24 and p_pad * ffmax < 2**31
-    assert p_pad * math.comb(g, k) < 2**21  # the defer_div region
+    assert tile_rows(p_pad) == bt and tiles_per_division(g, k, p_pad) == grp
+    assert ffmax < 2**24 and grp * bt * ffmax < 2**31
+    assert 2**20 < grp * bt * math.comb(g, k) < 2**21  # near the bound
+    assert kernel_fits(g, k, p_pad)
+    f = g * enc.hash_base
+    f_pad = max(32, 1 << (f - 1).bit_length())
     x = pairs.onehot_windows(
         jnp.asarray(enc.ids), jnp.asarray(enc.lengths),
         g=g, alpha=enc.hash_base, code_min=enc.code_min, p_pad=p_pad,
-    ).reshape(2 * p_pad, g * enc.hash_base)
-    blocks = pairs_kernel_blocks(
-        x, g=g, k=k, p_pad=p_pad, c_ti=1, c_tj=2, interpret=True
-    )
-    upper = np.asarray(blocks, dtype=np.int64).transpose(0, 2, 1, 3).reshape(2, 2)
+        dtype=jnp.int8,
+    ).reshape(2 * p_pad, f)
+    x = jnp.pad(x, ((0, 0), (0, f_pad - f)))
+    x = jnp.concatenate([x, jnp.zeros((14 * p_pad, f_pad), jnp.int8)])
+    upper = np.asarray(pairs_upper(x, g=g, k=k, p_pad=p_pad, sj=16,
+                                  interpret=True))
     expect = p * p * math.comb(g, k)
     assert upper[0, 0] == expect
     assert upper[0, 1] == expect
     assert upper[1, 1] == expect
+    assert upper[1, 0] == 0 and not upper[2:].any()
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6, 7, 8, 9])
+def test_deferred_division_exact_over_its_range(k):
+    """The kernel's deferred ``/k!`` recovers every quotient below
+    2^21 exactly (the f32 cast of k!*q and the reciprocal multiply both
+    round; the bound keeps the error under 1/2)."""
+    import math
+
+    import jax.numpy as jnp
+
+    from fastsk_jax.ops.pairs_pallas import divide_by_kfact
+
+    kf = math.factorial(k)
+    q = np.arange(0, 2**21, dtype=np.int64)
+    q = q[q * kf < 2**31]
+    got = np.asarray(divide_by_kfact(jnp.asarray(q * kf, jnp.int32), k))
+    np.testing.assert_array_equal(got, q)
 
 
 def test_checkpoint_digest_distinguishes_theta_streams(tmp_path, rng):

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from fastsk_tpu import FastSK, KernelConfig
-from fastsk_tpu.kernel.pairs_engine import PackedPairsEngine
-from fastsk_tpu.ops.encode import encode_sequences
+from fastsk_jax import FastSK, KernelConfig
+from fastsk_jax.kernel.pairs_engine import PackedPairsEngine
+from fastsk_jax.ops.encode import encode_sequences
 
 import oracle
 from conftest import random_ragged_seqs
@@ -26,6 +26,10 @@ def small_tile():
         (5, 2, 12, 6, 60, 3),
         (8, 4, 10, 10, 40, 20),  # protein-sized alphabet
         (6, 5, 14, 7, 25, 30),  # text-sized alphabet
+        (12, 6, 8, 18, 40, 4),  # two base-256 digit planes
+        (11, 4, 8, 12, 40, 4),  # two base-128 digit planes
+        (6, 3, 8, 60, 150, 4),  # sequences straddle several strips
+        (6, 3, 6, 100, 200, 4),  # each sequence spans > 1 strip
     ],
 )
 def test_packed_matches_oracle(rng, small_tile, g, m, n, lmin, lmax, alpha):
@@ -85,116 +89,18 @@ def test_api_guard_rejected_falls_to_packed(rng):
     assert type(engine).__name__ == "PackedPairsEngine"
 
 
-# ------------------------------------------------- fused Pallas backend
-
-
-@pytest.mark.parametrize(
-    "g,m,n,lmin,lmax,alpha",
-    [
-        (6, 3, 9, 8, 30, 4),
-        (8, 4, 10, 10, 40, 20),  # protein-sized alphabet
-        (12, 6, 8, 18, 40, 4),  # two digit planes
-    ],
-)
-def test_packed_pallas_matches_oracle(rng, small_tile, g, m, n, lmin, lmax, alpha):
-    """The fused Pallas packed backend (interpret mode on CPU) is
-    bit-identical to the oracle — same s1 values, same int32 stage 2."""
-    X = random_ragged_seqs(rng, n, lmin, lmax, alphabet=alpha)
-    K_o = oracle.exact_counts(X, g, m)
-    eng = PackedPairsEngine(
-        encode_sequences(X), g, m,
-        KernelConfig(pairs_backend="pallas_interpret"),
-    )
-    assert eng.backend == "pallas"
-    np.testing.assert_array_equal(K_o, eng.exact())
-
-
-def test_packed_pallas_straddling(rng, small_tile):
-    X = random_ragged_seqs(rng, 6, 100, 200, alphabet=4)
-    K_o = oracle.exact_counts(X, 6, 3)
-    eng = PackedPairsEngine(
-        encode_sequences(X), 6, 3,
-        KernelConfig(pairs_backend="pallas_interpret"),
-    )
-    assert eng.n_strips > 5
-    np.testing.assert_array_equal(K_o, eng.exact())
-
-
-def test_packed_pallas_grouped_matches_oracle(rng, small_tile):
-    """The grouped fused backend (the mesh path's building block) stays
-    bit-identical to the oracle alongside the default pair-list sweep."""
-    X = random_ragged_seqs(rng, 8, 60, 150, alphabet=4)
-    K_o = oracle.exact_counts(X, 6, 3)
-    eng = PackedPairsEngine(
-        encode_sequences(X), 6, 3,
-        KernelConfig(pairs_backend="pallas_grouped_interpret"),
-    )
-    assert eng.backend == "pallas_grouped"
-    np.testing.assert_array_equal(K_o, eng.exact())
-
-
-def test_packed_pairlist_multi_slab(rng, small_tile, monkeypatch):
-    """Pair-list slabbing: force a tiny slab so the sweep spans several
-    dispatches (with a padded final slab) and stays bit-exact."""
-    from fastsk_tpu.kernel.pairs_engine import PackedPairsEngine as PPE
-
-    X = random_ragged_seqs(rng, 8, 60, 150, alphabet=4)
-    K_o = oracle.exact_counts(X, 6, 3)
-    eng = PackedPairsEngine(
-        encode_sequences(X), 6, 3,
-        KernelConfig(pairs_backend="pallas_interpret"),
-    )
-    n_pairs = eng.n_strips * (eng.n_strips + 1) // 2
-    assert n_pairs > 3
-    # budget for at most 2 slab slots -> >= 2 dispatches + a padded tail
-    monkeypatch.setattr(
-        PPE, "SLAB_BYTES", 2 * eng.n_digits * eng.c_pad**2 * 4
-    )
-    np.testing.assert_array_equal(K_o, eng.exact())
-
-
-def test_landing_dtype_policy(rng, small_tile):
-    """int8 landing maps iff single-digit base <= 128 (measured v5e
-    policy — see PackedPairsEngine._land_dtype): C(8,4)=70 -> one
-    base-128 digit -> int8; C(11,7)=330 -> two digits -> bf16;
-    C(10,4)=210 -> one base-256 digit (128 would need two) -> bf16."""
-    import jax.numpy as jnp
-
+def test_digit_base_policy(rng, small_tile):
+    """One plane at base 128 when that adds no plane, else base 256:
+    C(8,4)=70 -> one base-128 digit; C(11,7)=330 -> two base-128 digits;
+    C(10,4)=210 -> one base-256 digit (128 would need two)."""
     X = random_ragged_seqs(rng, 6, 16, 40, alphabet=4)
 
     def eng(g, m):
         return PackedPairsEngine(encode_sequences(X), g, m, KernelConfig())
 
-    e = eng(8, 4)
-    assert (e.digit_base, e.n_digits) == (128, 1)
-    assert e._land_dtype() == jnp.int8
-    e = eng(11, 4)
-    assert (e.digit_base, e.n_digits) == (128, 2)
-    assert e._land_dtype() == jnp.bfloat16
-    e = eng(10, 6)
-    assert (e.digit_base, e.n_digits) == (256, 1)
-    assert e._land_dtype() == jnp.bfloat16
-
-
-def test_landing_int8_override_multi_digit_exact(rng, small_tile,
-                                                 monkeypatch):
-    """FASTSK_LAND_DTYPE=int8 on a MULTI-digit base-128 split (g=11 m=4:
-    C(11,7)=330 -> two base-128 digits) must stay exact: digits <= 127
-    fit the signed int8 operand and both stages accumulate in int32.
-    The default policy picks bf16 here, so the override path had no
-    interpret-mode exactness coverage (ADVICE r4)."""
-    import jax.numpy as jnp
-
-    monkeypatch.setenv("FASTSK_LAND_DTYPE", "int8")
-    X = random_ragged_seqs(rng, 8, 12, 40, alphabet=4)
-    enc = encode_sequences(X)
-    eng = PackedPairsEngine(
-        enc, 11, 4, KernelConfig(pairs_backend="pallas_interpret")
-    )
-    assert (eng.digit_base, eng.n_digits) == (128, 2)
-    assert eng._land_dtype() == jnp.int8
-    K_o = oracle.exact_counts(X, 11, 4)
-    np.testing.assert_array_equal(K_o, eng.exact())
+    assert (eng(8, 4).digit_base, eng(8, 4).n_digits) == (128, 1)
+    assert (eng(11, 4).digit_base, eng(11, 4).n_digits) == (128, 2)
+    assert (eng(10, 6).digit_base, eng(10, 6).n_digits) == (256, 1)
 
 
 def test_planes_to_host_tiles_and_fallback(rng):
@@ -203,7 +109,7 @@ def test_planes_to_host_tiles_and_fallback(rng):
     the int64 host fallback when the runtime bound exceeds int32."""
     import jax.numpy as jnp
 
-    from fastsk_tpu.ops import pairs_packed as pk
+    from fastsk_jax.ops import pairs_packed as pk
 
     n_pad = 700  # crosses one 512-tile boundary
     base = 16
@@ -217,7 +123,7 @@ def test_planes_to_host_tiles_and_fallback(rng):
         n_digits = 2
         digit_base = base
     shim = Shim()
-    from fastsk_tpu.kernel.pairs_engine import PackedPairsEngine
+    from fastsk_jax.kernel.pairs_engine import PackedPairsEngine
 
     out = PackedPairsEngine._planes_to_host(shim, planes)
     ref = (a + base * b)[: shim.n, : shim.n]

@@ -4,10 +4,10 @@
 import numpy as np
 import pytest
 
-from fastsk_tpu import FastSK, KernelConfig
-from fastsk_tpu.kernel.pairs_engine import PairsGkmEngine
-from fastsk_tpu.ops.encode import encode_sequences
-from fastsk_tpu.ops.pairs import binom_exact
+from fastsk_jax import FastSK, KernelConfig
+from fastsk_jax.kernel.pairs_engine import PairsGkmEngine
+from fastsk_jax.ops.encode import encode_sequences
+from fastsk_jax.ops.pairs import binom_exact
 
 import oracle
 from conftest import random_ragged_seqs
@@ -77,114 +77,151 @@ def test_int32_bound_guard():
     assert type(engine).__name__ == "PackedPairsEngine"
 
 
-def test_pallas_kernel_interpret_matches_oracle(rng):
-    """The fused Pallas kernel (interpret mode on CPU) must equal the oracle."""
-    from fastsk_tpu.kernel.config import KernelConfig
+def _kernel_engine(monkeypatch, X, g, m):
+    """A PairsGkmEngine sized for the fused kernel, as on a GPU (the
+    platform helper is patched; the kernel itself runs in interpret mode
+    through the ``interpret`` keyword, never through a config value)."""
+    from fastsk_jax.kernel import config
+
+    monkeypatch.setattr(config, "platform_of", lambda cfg: "gpu")
+    eng = PairsGkmEngine(encode_sequences(X), g, m)
+    assert eng.backend == "pallas"
+    return eng
+
+
+def test_pallas_kernel_interpret_matches_oracle(rng, monkeypatch):
+    """The fused kernel (interpret mode on CPU) must equal the oracle,
+    with the padding the engine adds for it: p_pad to 16 rows, columns to
+    a power of two, sequences to the column block."""
+    from fastsk_jax.ops import pairs_pallas
 
     X = random_ragged_seqs(rng, 11, 9, 18, alphabet=4)
     K_o = oracle.exact_counts(X, 6, 3)
-    eng = PairsGkmEngine(
-        encode_sequences(X), 6, 3, KernelConfig(pairs_backend="pallas")
-    )
+    eng = _kernel_engine(monkeypatch, X, 6, 3)
+    assert eng.p_pad % 16 == 0 and eng.n_pad % eng.sj == 0
     x = eng._build_x()
-    upper = eng._exact_pallas(x, interpret=True)[: eng.n, : eng.n]
-    K_p = np.triu(upper) + np.triu(upper, 1).T
-    np.testing.assert_array_equal(K_o, K_p)
+    assert x.dtype == np.int8 and x.shape == (eng.n_pad * eng.p_pad, 32)
+    upper = np.asarray(
+        pairs_pallas.pairs_upper(
+            x, g=6, k=3, p_pad=eng.p_pad, sj=eng.sj, interpret=True
+        )
+    )[: eng.n, : eng.n]
+    assert not np.tril(upper, -1).any()  # lower triangle left to the caller
+    np.testing.assert_array_equal(K_o, upper + np.triu(upper, 1).T)
 
 
-def test_pairs_full_device_single_dispatch_matches_oracle(rng):
-    """The fused single-dispatch device-resident path (one jit: full-grid
-    Pallas call + block relayout + triu/mirror, pairs_engine.
-    _pairs_full_device_jit) must equal the oracle bit for bit."""
-    from fastsk_tpu.kernel.config import KernelConfig
-    from fastsk_tpu.kernel.pairs_engine import _pairs_full_device_jit
+def test_pairs_full_device_single_dispatch_matches_oracle(rng, monkeypatch):
+    """The single device program (kernel + mirror + crop,
+    pairs_engine._pairs_full_device_jit) must equal the oracle bit for
+    bit."""
+    from fastsk_jax.kernel.pairs_engine import _pairs_full_device_jit
 
     X = random_ragged_seqs(rng, 11, 9, 18, alphabet=4)
     K_o = oracle.exact_counts(X, 6, 3)
-    eng = PairsGkmEngine(
-        encode_sequences(X), 6, 3, KernelConfig(pairs_backend="pallas")
-    )
-    x = eng._build_x()
+    eng = _kernel_engine(monkeypatch, X, 6, 3)
     full = np.asarray(
         _pairs_full_device_jit(
-            x, g=6, k=3, p_pad=eng.p_pad, c_ti=eng.c_i, c_tj=eng.c_j,
-            n=eng.n, interpret=True,
+            eng._build_x(), g=6, k=3, p_pad=eng.p_pad, sj=eng.sj, n=eng.n,
+            interpret=True,
         )
     )
     np.testing.assert_array_equal(K_o, full)
 
 
-def test_pallas_streaming_transfer_matches_oracle(rng):
-    """The banded byte-plane streaming path (forced via _small_bytes=0)
-    must equal the oracle bit for bit — covers the per-band tile lists,
-    min-offset decode, deferred plane gathers, and per-i-row assembly."""
-    from fastsk_tpu.kernel.config import KernelConfig
-
-    X = random_ragged_seqs(rng, 13, 9, 18, alphabet=4)
-    K_o = oracle.exact_counts(X, 6, 3)
-    eng = PairsGkmEngine(
-        encode_sequences(X), 6, 3, KernelConfig(pairs_backend="pallas")
-    )
-    eng._small_bytes = 0  # force the streaming machinery on a tiny matrix
-    x = eng._build_x()
-    upper = eng._exact_pallas(x, interpret=True)[: eng.n, : eng.n]
-    K_p = np.triu(upper) + np.triu(upper, 1).T
-    np.testing.assert_array_equal(K_o, K_p)
-
-
-def test_pallas_int8_band_matches_oracle(rng):
-    """int8 MXU path + banded launches (interpret mode) equal the oracle."""
+@pytest.mark.parametrize("length", [24, 40, 75])  # tiles of 16, 32 and 64 rows
+def test_pallas_column_blocks_and_tile_rows(rng, length):
+    """Several column blocks per row (sj < n_pad) and every tile height
+    the p_pad rule produces."""
     import jax.numpy as jnp
 
-    from fastsk_tpu.ops import pairs, pairs_pallas
-    from fastsk_tpu.ops.encode import encode_sequences
+    from fastsk_jax.ops import pairs, pairs_pallas
 
-    X = [rng.integers(1, 5, size=24).tolist() for _ in range(8)]
-    g, m = 6, 3
+    g, m, n = 6, 3, 32
+    X = [rng.integers(1, 5, size=length).tolist() for _ in range(n)]
     K_o = oracle.exact_counts(X, g, m)
     enc = encode_sequences(X)
-    p_pad = -(-(enc.max_len - g + 1) // 8) * 8
+    p_pad = -(-(enc.max_len - g + 1) // 16) * 16
     x = pairs.onehot_windows(
         jnp.asarray(enc.ids), jnp.asarray(enc.lengths),
         g=g, alpha=enc.hash_base, code_min=enc.code_min, p_pad=p_pad,
         dtype=jnp.int8,
-    ).reshape(8 * p_pad, g * enc.hash_base)
-    kwargs = dict(g=g, k=g - m, p_pad=p_pad, c_ti=1, c_tj=2, interpret=True)
-    full = np.zeros((8, 8), dtype=np.int64)
-    for i0 in range(0, 8, 3):  # bands of 3 i-blocks (last partial)
-        nb = min(3, 8 - i0)
-        blocks = pairs_pallas.pairs_kernel_blocks(
-            x, jnp.int32(i0), n_i_band=nb, **kwargs
+    ).reshape(n * p_pad, g * enc.hash_base)
+    x = jnp.pad(x, ((0, 0), (0, 32 - x.shape[1])))
+    upper = np.asarray(
+        pairs_pallas.pairs_upper(x, g=g, k=g - m, p_pad=p_pad,
+                                 sj=16, interpret=True)
+    )
+    np.testing.assert_array_equal(K_o, upper + np.triu(upper, 1).T)
+
+
+def test_kernel_route_and_sizing(rng, monkeypatch):
+    """Route choice: CPU -> xla; a GPU -> the kernel where its exactness
+    bounds hold; an explicit "pallas" off a GPU raises instead of falling
+    back (also through the API's engine selection)."""
+    from fastsk_jax.kernel import config
+
+    X = random_ragged_seqs(rng, 5, 30, 30, alphabet=4)
+    enc = encode_sequences(X)
+    assert PairsGkmEngine(enc, 6, 3).backend == "xla"
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        PairsGkmEngine(enc, 6, 3, KernelConfig(pairs_backend="pallas"))
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        FastSK(g=6, m=3, config=KernelConfig(pairs_backend="pallas")).compute_train(X)
+    with pytest.raises(ValueError, match="pairs_backend"):
+        KernelConfig(pairs_backend="pallas_interpret")
+
+    monkeypatch.setattr(config, "platform_of", lambda cfg: "gpu")
+    eng = PairsGkmEngine(enc, 6, 3)
+    assert (eng.backend, eng.p_pad, eng.sj, eng.n_pad) == ("pallas", 32, 16, 16)
+    # g=16 m=10 at length 400 (p_pad 400): the kernel's bounds are per
+    # tile, so only the per-entry guard limits the length
+    mid = PairsGkmEngine(encode_sequences([[1, 2, 3, 4, 1] * 80] * 2), 16, 10)
+    assert (mid.backend, mid.p_pad) == ("pallas", 400)
+    # g=20 m=10: 20!/10! is not exact in f32 -> XLA strips, and forcing
+    # the kernel raises
+    long_x = [[1, 2, 3, 4] * 10 for _ in range(3)]
+    assert PairsGkmEngine(encode_sequences(long_x), 20, 10).backend == "xla"
+    with pytest.raises(RuntimeError, match="exactness bounds"):
+        PairsGkmEngine(
+            encode_sequences(long_x), 20, 10,
+            KernelConfig(pairs_backend="pallas"),
         )
-        part = np.asarray(blocks, dtype=np.int64).transpose(0, 2, 1, 3)
-        full[i0 : i0 + nb] = part.reshape(nb, 8)
-    upper = np.triu(full)
-    K = upper + np.triu(full, 1).T
-    np.testing.assert_array_equal(K_o, K)
 
 
-def test_d_chunk_rule_invariants():
-    """The shared D-chunk rule (pairs_pallas.d_chunk) must always return
-    a divisor of tj, keep the D tile under ~12 MB whenever a >=384-lane
-    chunk can achieve it, and never go below the 384-lane floor unless
-    tj itself is smaller."""
-    from fastsk_tpu.ops.pairs_pallas import d_chunk
+def test_tile_rows_and_kernel_fits_invariants():
+    """tile_rows returns the largest power of two <= 64 dividing p_pad;
+    kernel_fits admits exactly the shapes whose bounds hold."""
+    import math
 
-    for p_pad in (8, 32, 96, 192, 256):
-        for c_i in (1, 4, 16, 32):
-            for c_j in (32, 128):
-                ti, tj = c_i * p_pad, c_j * p_pad
-                chunk = d_chunk(ti, tj)
-                assert tj % chunk == 0, (ti, tj, chunk)
-                if chunk > 384:
-                    # could not shrink further only if halving would
-                    # cross the floor or stop dividing tj
-                    assert (
-                        ti * chunk * 4 <= 12 * 2**20
-                        or chunk < 2 * 384
-                        or tj % (tj // chunk * 2) != 0
-                    ), (ti, tj, chunk)
-                if tj >= 384:
-                    assert chunk >= 384 or ti * 2 * 384 * 4 > 12 * 2**20, (
-                        ti, tj, chunk,
-                    )
+    from fastsk_jax.ops.pairs_pallas import (
+        kernel_fits,
+        tile_rows,
+        tiles_per_division,
+    )
+
+    for p_pad in range(16, 1025, 16):
+        bt = tile_rows(p_pad)
+        assert p_pad % bt == 0 and bt in (16, 32, 64)
+        assert bt == 64 or p_pad % (2 * bt)
+    for g in range(1, 21):
+        for k in range(0, g + 1):
+            for p_pad in (16, 96, 192, 208, 1024):
+                ff = math.factorial(g) // math.factorial(g - k)
+                c = math.comb(g, k)
+                bt = tile_rows(p_pad)
+                ok = (k >= 1 and ff < 2**24 and bt * ff < 2**31
+                      and bt * c < 2**21)
+                assert kernel_fits(g, k, p_pad) == ok
+                # the most tiles per /k! that keep both bounds
+                grp = tiles_per_division(g, k, p_pad)
+                assert grp * bt * ff < 2**31 and grp * bt * c < 2**21
+                assert grp == p_pad // bt or (
+                    (grp + 1) * bt * ff >= 2**31
+                    or (grp + 1) * bt * c >= 2**21
+                )
+    assert tiles_per_division(13, 6, 192) == tiles_per_division(16, 6, 192) == 3
+    assert not kernel_fits(6, 3, 24)  # not a 16-row multiple
+    assert kernel_fits(16, 6, 192) and kernel_fits(13, 6, 192)  # KAT2B
+    # the bounds are per tile: p_pad is limited only by the engine's
+    # per-entry guard p_pad^2 * C(g, k) < 2^31 (about 517 rows at g=16 k=6)
+    assert all(kernel_fits(16, 6, p) for p in range(16, 528, 16))

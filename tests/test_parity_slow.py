@@ -1,14 +1,14 @@
-"""Full-dataset parity gates (FASTSK_RUN_SLOW=1; minutes each on TPU).
+"""Full-dataset parity gates (FASTSK_RUN_SLOW=1; minutes each).
 
 Expected values are the reference's published numbers
 (results/spreadsheets/performance_results_summary.csv) — the exact rows
 reproduce to ~1e-6 because the kernels are bit-identical and the SVM
-workflow matches sklearn's to machine precision (see RESULTS.md).
+workflow matches sklearn's to machine precision (see experiments/results_tables/).
 """
 
 import pytest
 
-from fastsk_tpu.harness import FastskRunner
+from fastsk_jax.harness import FastskRunner
 
 pytestmark = pytest.mark.slow
 

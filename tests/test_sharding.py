@@ -9,8 +9,8 @@ import jax
 import numpy as np
 import pytest
 
-from fastsk_tpu import FastSK, KernelConfig
-from fastsk_tpu.parallel import make_mesh, default_mesh_shape
+from fastsk_jax import FastSK, KernelConfig
+from fastsk_jax.parallel import make_mesh, default_mesh_shape
 
 from conftest import random_ragged_seqs
 
@@ -89,9 +89,9 @@ def test_pairs_engine_refuses_mesh(rng, mesh8):
     its mesh path replicated the O(N*p*gA) window encoding per device and
     never memory-scaled). A mesh must raise, and the auto route must land
     on the packed ring path with identical integers."""
-    from fastsk_tpu.kernel.config import KernelConfig
-    from fastsk_tpu.kernel.pairs_engine import PairsGkmEngine
-    from fastsk_tpu.ops.encode import encode_sequences
+    from fastsk_jax.kernel.config import KernelConfig
+    from fastsk_jax.kernel.pairs_engine import PairsGkmEngine
+    from fastsk_jax.ops.encode import encode_sequences
 
     X = random_ragged_seqs(rng, 27, 12, 20, alphabet=4)
     enc = encode_sequences(X)
@@ -102,7 +102,7 @@ def test_pairs_engine_refuses_mesh(rng, mesh8):
 def test_api_exact_with_mesh_routes_to_packed(rng, mesh8):
     """Auto engine selection under a mesh routes to the packed engine
     (fully input+state sharded) and matches single-device exactly."""
-    from fastsk_tpu.ops.encode import encode_sequences
+    from fastsk_jax.ops.encode import encode_sequences
 
     X = random_ragged_seqs(rng, 16, 10, 16, alphabet=4)
     fsk = FastSK(g=6, m=2, config=KernelConfig(mesh=mesh8))
@@ -117,8 +117,8 @@ def test_api_exact_with_mesh_routes_to_packed(rng, mesh8):
 def test_packed_sharded_matches_single_device(rng, mesh8):
     """Round-robin strip sharding of the packed (ragged) engine: per-device
     plane replicas summed on the host equal the single-device integers."""
-    from fastsk_tpu.kernel.pairs_engine import PackedPairsEngine
-    from fastsk_tpu.ops.encode import encode_sequences
+    from fastsk_jax.kernel.pairs_engine import PackedPairsEngine
+    from fastsk_jax.ops.encode import encode_sequences
 
     orig = PackedPairsEngine.TILE
     PackedPairsEngine.TILE = 64
@@ -136,8 +136,8 @@ def test_packed_sharded_matches_single_device(rng, mesh8):
 
 
 def test_packed_sharded_multi_digit(rng, mesh8):
-    from fastsk_tpu.kernel.pairs_engine import PackedPairsEngine
-    from fastsk_tpu.ops.encode import encode_sequences
+    from fastsk_jax.kernel.pairs_engine import PackedPairsEngine
+    from fastsk_jax.ops.encode import encode_sequences
 
     orig = PackedPairsEngine.TILE
     PackedPairsEngine.TILE = 64
@@ -157,7 +157,7 @@ def test_packed_sharded_multi_digit(rng, mesh8):
 def test_api_routes_ragged_mesh_to_packed(rng, mesh8):
     """With a mesh, heavily ragged data now routes to the sharded packed
     engine (round 1 silently fell back to the slow theta path)."""
-    from fastsk_tpu.ops.encode import encode_sequences
+    from fastsk_jax.ops.encode import encode_sequences
 
     X = random_ragged_seqs(rng, 10, 8, 80, alphabet=4)
     fsk = FastSK(g=6, m=2, config=KernelConfig(mesh=mesh8))
@@ -173,9 +173,9 @@ def test_exact_engine_non_power_of_two_mesh(rng):
     """A 2x3 mesh (6 of the 8 virtual devices) produces integer-identical
     exact counts — no hidden power-of-two assumptions in the rows/theta
     sharding or the packed ring."""
-    from fastsk_tpu.kernel.pairs_engine import PackedPairsEngine
-    from fastsk_tpu.kernel.config import KernelConfig
-    from fastsk_tpu.ops.encode import encode_sequences
+    from fastsk_jax.kernel.pairs_engine import PackedPairsEngine
+    from fastsk_jax.kernel.config import KernelConfig
+    from fastsk_jax.ops.encode import encode_sequences
 
     X = [
         list(rng.integers(1, 5, size=int(rng.integers(10, 18))))
@@ -197,9 +197,9 @@ def test_packed_rowsharded_memory_layout(rng, mesh8):
     """mesh_state="sharded" (default) gives each device a plane ROW BLOCK
     [n_digits, blk, Np] with blk ~ Np/n_dev + halo — assert addressable
     shards shrink and both states match the single device exactly."""
-    from fastsk_tpu.kernel.pairs_engine import PackedPairsEngine
-    from fastsk_tpu.ops.encode import encode_sequences
-    from fastsk_tpu.parallel import sharding as shd
+    from fastsk_jax.kernel.pairs_engine import PackedPairsEngine
+    from fastsk_jax.ops.encode import encode_sequences
+    from fastsk_jax.parallel import sharding as shd
 
     orig = PackedPairsEngine.TILE
     PackedPairsEngine.TILE = 64

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from fastsk_tpu import FastSK, KernelConfig
-from fastsk_tpu.kernel.sorted_engine import SortedGkmEngine
-from fastsk_tpu.ops.encode import encode_sequences
+from fastsk_jax import FastSK, KernelConfig
+from fastsk_jax.kernel.sorted_engine import SortedGkmEngine
+from fastsk_jax.ops.encode import encode_sequences
 
 import oracle
 from conftest import random_ragged_seqs
@@ -59,8 +59,8 @@ def test_sorted_count_split_int8_digits(rng):
     np.testing.assert_array_equal(K_oracle, eng.exact())
 
     # force the int8 digit mode on the same shapes: bit-identical
-    from fastsk_tpu.ops.combinatorics import enumerate_combinations
-    from fastsk_tpu.ops.sorted_theta import sorted_theta_pass
+    from fastsk_jax.ops.combinatorics import enumerate_combinations
+    from fastsk_jax.ops.sorted_theta import sorted_theta_pass
 
     statics = dict(eng._static_kwargs(), count_split=True)
     th = enumerate_combinations(g, g - m)
@@ -81,7 +81,7 @@ def test_sorted_batch_sum_bitexact(rng):
     individual passes."""
     import jax.numpy as jnp
 
-    from fastsk_tpu.ops.combinatorics import enumerate_combinations
+    from fastsk_jax.ops.combinatorics import enumerate_combinations
 
     X = random_ragged_seqs(rng, 8, 8, 20, alphabet=20)
     eng = SortedGkmEngine(encode_sequences(X), 6, 3, KernelConfig(sorted_slab=64))
@@ -135,7 +135,7 @@ def test_sorted_adaptive_spill_forced(rng):
 
 
 def test_sorted_tri_blocked_gram(rng):
-    """Upper-block-triangle count-matmuls (the exact/skip-variance MXU
+    """Upper-block-triangle count-matmuls (the exact/skip-variance matmul
     saving) must reproduce the oracle exactly after the engine's mirror,
     on both the bf16 and the int8 digit-split paths."""
     for alphabet, reps in ((20, 1), (2, 40)):
@@ -158,7 +158,7 @@ def test_sorted_tri_blocked_gram(rng):
 
 
 def _stream(eng, seed):
-    from fastsk_tpu.ops.combinatorics import enumerate_combinations
+    from fastsk_jax.ops.combinatorics import enumerate_combinations
 
     rng2 = np.random.default_rng(seed)
     all_t = enumerate_combinations(eng.g, eng.k)
@@ -177,7 +177,7 @@ def test_sorted_multiword_hash(rng):
 def test_sorted_approx_counts_match_explicit_thetas(rng):
     """skip_variance approx over a seeded stream must equal the oracle's
     sum over the same explicit subsets."""
-    from fastsk_tpu.ops.combinatorics import enumerate_combinations
+    from fastsk_jax.ops.combinatorics import enumerate_combinations
 
     X = random_ragged_seqs(rng, 8, 10, 16, alphabet=20)
     g, m, seed, iters = 7, 3, 11, 9
@@ -214,8 +214,8 @@ def test_api_routes_big_alphabet_to_sorted(rng):
 
 def test_sorted_batch_pass_bitexact_vs_single(rng):
     """sorted_theta_pass_batch slices must equal per-theta passes."""
-    from fastsk_tpu.ops.combinatorics import enumerate_combinations
-    from fastsk_tpu.ops.sorted_theta import (
+    from fastsk_jax.ops.combinatorics import enumerate_combinations
+    from fastsk_jax.ops.sorted_theta import (
         sorted_theta_pass,
         sorted_theta_pass_batch,
     )
@@ -233,7 +233,7 @@ def test_sorted_sharded_adaptive_spill(rng):
     host_gather mid-stream) must stay bit-identical."""
     import jax
 
-    from fastsk_tpu.parallel import make_mesh
+    from fastsk_jax.parallel import make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -251,7 +251,7 @@ def test_sorted_sharded_adaptive_spill(rng):
 def test_sorted_sharded_matches_single_device(rng):
     import jax
 
-    from fastsk_tpu.parallel import make_mesh
+    from fastsk_jax.parallel import make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -275,8 +275,8 @@ def test_sorted_rowsharded_memory_layout(rng):
     and to the single device."""
     import jax
 
-    from fastsk_tpu.parallel import make_mesh
-    from fastsk_tpu.parallel import sharding as shd
+    from fastsk_jax.parallel import make_mesh
+    from fastsk_jax.parallel import sharding as shd
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -332,7 +332,7 @@ def test_sorted_layout_runs_vs_pairs_bitexact(rng):
     kr = mk("runs").exact()
     np.testing.assert_array_equal(kp, kr)
     # batched [T, n, n] (the Welford unit)
-    from fastsk_tpu.ops.combinatorics import enumerate_combinations
+    from fastsk_jax.ops.combinatorics import enumerate_combinations
 
     th = enumerate_combinations(7, 4)[:3]
     np.testing.assert_array_equal(

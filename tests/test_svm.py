@@ -3,15 +3,15 @@
 import numpy as np
 import pytest
 
-from fastsk_tpu.metrics import accuracy_score, auc_pairwise, roc_auc
-from fastsk_tpu.svm.kernel_svm import KernelSVC
-from fastsk_tpu.svm.linear import (
+from fastsk_jax.metrics import accuracy_score, auc_pairwise, roc_auc
+from fastsk_jax.svm.kernel_svm import KernelSVC
+from fastsk_jax.svm.linear import (
     CalibratedLinearSVC,
     LinearSVC,
     stratified_kfold_indices,
     train_eval_linear,
 )
-from fastsk_tpu.svm.platt import sigmoid_predict, sigmoid_train
+from fastsk_jax.svm.platt import sigmoid_predict, sigmoid_train
 
 
 def make_blobs(rng, n=120, d=6, sep=1.5):
@@ -155,7 +155,7 @@ def test_integration_train_eval_linear(rng):
 def test_epsilon_svr_matches_sklearn(rng):
     from sklearn.svm import SVR
 
-    from fastsk_tpu.svm.kernel_svm import EpsilonSVR
+    from fastsk_jax.svm.kernel_svm import EpsilonSVR
 
     n = 50
     X = rng.normal(size=(n, 4))
@@ -171,7 +171,7 @@ def test_epsilon_svr_matches_sklearn(rng):
 def test_one_class_svm_matches_sklearn(rng):
     from sklearn.svm import OneClassSVM as SkOneClass
 
-    from fastsk_tpu.svm.kernel_svm import OneClassSVM
+    from fastsk_jax.svm.kernel_svm import OneClassSVM
 
     n = 60
     X = rng.normal(size=(n, 3))
@@ -192,7 +192,7 @@ def test_one_class_svm_matches_sklearn(rng):
 def test_nu_svc_matches_sklearn(rng):
     from sklearn.svm import NuSVC as SkNuSVC
 
-    from fastsk_tpu.svm.kernel_svm import NuSVC
+    from fastsk_jax.svm.kernel_svm import NuSVC
 
     n = 60
     X = rng.normal(size=(n, 4))
@@ -212,7 +212,7 @@ def test_nu_svc_matches_sklearn(rng):
 def test_nu_svr_matches_sklearn(rng):
     from sklearn.svm import NuSVR as SkNuSVR
 
-    from fastsk_tpu.svm.kernel_svm import NuSVR
+    from fastsk_jax.svm.kernel_svm import NuSVR
 
     n = 50
     X = rng.normal(size=(n, 4))
@@ -230,7 +230,7 @@ def test_warm_start_restriction_feasible_and_equivalent(rng):
     fold; the repair must land exactly on y^T a = 0 inside the box, and a
     warm-started solve must reach the same optimum as a cold start (the
     eps stopping rule is a property of the point, not the path)."""
-    from fastsk_tpu.svm.kernel_svm import _restrict_feasible
+    from fastsk_jax.svm.kernel_svm import _restrict_feasible
 
     X, y = make_blobs(rng, n=90, d=5)
     K = X @ X.T
@@ -266,9 +266,9 @@ def test_probability_platt_params_unchanged_by_warm_start(rng):
     reference's cold-start svm_binary_svc_probability folds,
     svm.cpp:1913-1999) against a hand-rolled cold-start reference, and
     the opt-in warm-started mode against the same."""
-    from fastsk_tpu.svm.kernel_svm import _smo_solve, _gram_f32
-    from fastsk_tpu.svm.linear import stratified_kfold_indices
-    from fastsk_tpu.svm.platt import sigmoid_train
+    from fastsk_jax.svm.kernel_svm import _smo_solve, _gram_f32
+    from fastsk_jax.svm.linear import stratified_kfold_indices
+    from fastsk_jax.svm.platt import sigmoid_train
 
     X, y = make_blobs(rng, n=100, d=5)
     K = X @ X.T
@@ -314,7 +314,7 @@ def test_blocked_smo_matches_pairwise_and_sklearn(rng):
     import jax.numpy as jnp
     from sklearn.svm import SVC
 
-    from fastsk_tpu.svm.kernel_svm import (
+    from fastsk_jax.svm.kernel_svm import (
         _smo_solve_blocked,
         _smo_solve_general,
     )
@@ -369,76 +369,3 @@ def test_kernel_svc_blocked_threshold_path(rng):
         a.decision_function(K), b.decision_function(K), atol=2e-2
     )
     assert (a.predict(K) == b.predict(K)).all()
-
-
-def test_fused_smo_matches_while_loop(rng):
-    """smo_pallas.smo_solve_fused (interpret mode) is the same selection
-    and update, op for op, as _smo_solve_general — on a problem small
-    enough that f32 tie-breaking never diverges, the trajectories are
-    bit-identical (iters, alpha, rho). Real-hardware equality is covered
-    by the @tpu device test."""
-    import jax.numpy as jnp
-
-    from fastsk_tpu.svm.kernel_svm import _finalize_rho, _smo_solve_general
-    from fastsk_tpu.svm.smo_pallas import smo_solve_fused
-
-    n = 40
-    X = rng.normal(size=(n, 4)).astype(np.float32)
-    K = (X @ X.T + n * np.eye(n)).astype(np.float32)
-    d = np.sqrt(np.diag(K))
-    K = (K / np.outer(d, d)).astype(np.float32)
-    y = np.where(rng.random(n) > 0.5, 1.0, -1.0).astype(np.float32)
-    Q = jnp.asarray(K * np.outer(y, y))
-    yj = jnp.asarray(y)
-    C = jnp.full(n, 1.0, jnp.float32)
-    p = -jnp.ones(n, jnp.float32)
-    a0 = jnp.zeros(n, jnp.float32)
-
-    a_f, g_f, it_f = smo_solve_fused(Q, yj, C, p, a0, 1e-3, 100000, interpret=True)
-    a_f, rho_f = _finalize_rho(a_f, g_f, yj, C)
-    a_r, rho_r, it_r = _smo_solve_general(Q, yj, C, p, a0, 1e-3, 100000)
-    assert int(it_f) == int(it_r)
-    np.testing.assert_array_equal(np.asarray(a_f), np.asarray(a_r))
-    assert float(rho_f) == float(rho_r)
-
-
-def test_fused_nu_smo_matches_while_loop(rng):
-    """smo_pallas.smo_solve_nu_fused (interpret mode) is Solver_NU op for
-    op: bit-identical iters/alpha/rho/r to _smo_solve_nu on a problem
-    small enough that tie-breaking never diverges."""
-    import jax.numpy as jnp
-
-    from fastsk_tpu.svm.kernel_svm import _finalize_nu, _smo_solve_nu
-    from fastsk_tpu.svm.smo_pallas import smo_solve_nu_fused
-
-    n = 40
-    X = rng.normal(size=(n, 4)).astype(np.float32)
-    K = (X @ X.T + n * np.eye(n)).astype(np.float32)
-    d = np.sqrt(np.diag(K))
-    K = (K / np.outer(d, d)).astype(np.float32)
-    y = np.where(np.arange(n) % 2 == 0, 1.0, -1.0).astype(np.float32)
-    Q = jnp.asarray(K * np.outer(y, y))
-    yj = jnp.asarray(y)
-    C = jnp.ones(n, jnp.float32)
-    p = jnp.zeros(n, jnp.float32)
-    # LIBSVM nu initial point: fill each class up to nu*n/2
-    nu = 0.5
-    a0 = np.zeros(n, np.float32)
-    for cls in (1.0, -1.0):
-        left = nu * n / 2.0
-        for idx in np.flatnonzero(y == cls):
-            take = min(1.0, left)
-            a0[idx] = take
-            left -= take
-            if left <= 0:
-                break
-    a0 = jnp.asarray(a0)
-
-    a_f, g_f, it_f = smo_solve_nu_fused(
-        Q, yj, C, p, a0, 1e-3, 100000, interpret=True
-    )
-    a_f, rho_f, r_f = _finalize_nu(a_f, g_f, yj, C)
-    a_r, rho_r, r_r, it_r = _smo_solve_nu(Q, yj, C, p, a0, 1e-3, 100000)
-    assert int(it_f) == int(it_r)
-    np.testing.assert_array_equal(np.asarray(a_f), np.asarray(a_r))
-    assert float(rho_f) == float(rho_r) and float(r_f) == float(r_r)

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fastsk_tpu.ops.transfer import _bucket, pull_tiles_int32
+from fastsk_jax.ops.transfer import _bucket, pull_tiles_int32
 
 
 def test_bucket_is_geometric():
@@ -65,7 +65,7 @@ def test_boundary_values(rng):
 def test_min_offset_narrows_planes(rng):
     """Large but clustered tiles ride plane 0 only (width is set by the
     within-tile range, not the magnitude)."""
-    from fastsk_tpu.ops import transfer
+    from fastsk_jax.ops import transfer
 
     m, th, tw = 6, 8, 16
     base = rng.integers(10_000_000, 2**30, size=(m, 1, 1), dtype=np.int64)
@@ -96,7 +96,7 @@ def test_min_offset_narrows_planes(rng):
 def test_streaming_multiple_bands_with_deferrals(rng):
     """Several bands in flight; the rare wide tiles ride per-band
     bucketed plane-1/2 gathers that correct the batched pull in place."""
-    from fastsk_tpu.ops.transfer import StreamingTilePuller
+    from fastsk_jax.ops.transfer import StreamingTilePuller
 
     bands = []
     for b in range(3):
@@ -114,7 +114,7 @@ def test_pull_all_mixed_band_sizes(rng):
     """Bands of different live counts concatenate correctly; a whole
     plane 1 is pulled when most tiles are wide, per-band plane-2 tails
     correct only their own band's slots."""
-    from fastsk_tpu.ops.transfer import StreamingTilePuller
+    from fastsk_jax.ops.transfer import StreamingTilePuller
 
     puller = StreamingTilePuller()
     bands, handles = [], []
@@ -134,7 +134,7 @@ def test_pull_all_mixed_band_sizes(rng):
 def test_pull_array_chunked_matches_whole(rng):
     """Chunked pulls concatenate back to the exact array for sizes
     around the chunk boundary (including non-divisible row counts)."""
-    from fastsk_tpu.ops import transfer
+    from fastsk_jax.ops import transfer
 
     orig = transfer.CHUNK_BYTES
     transfer.CHUNK_BYTES = 1 << 10  # 1 KB chunks to force many requests

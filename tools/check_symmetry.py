@@ -18,7 +18,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     sys.path.insert(0, __file__.rsplit("/", 2)[0])
-    from fastsk_tpu.io.fasta import load_kernel
+    from fastsk_jax.io.fasta import load_kernel
 
     K = load_kernel(args.kernel_file)
     ok = True

@@ -20,7 +20,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     sys.path.insert(0, __file__.rsplit("/", 2)[0])
-    from fastsk_tpu.io.fasta import load_kernel
+    from fastsk_jax.io.fasta import load_kernel
 
     A = load_kernel(args.kernel_a)
     B = load_kernel(args.kernel_b)

@@ -82,7 +82,7 @@ def main() -> int:
     ap.add_argument("--auc", action="store_true",
                     help="also reproduce the published-pipeline AUC on both kernels")
     ap.add_argument("--cpu", action="store_true",
-                    help="run our engine on CPU (leave the TPU free)")
+                    help="run our engine on CPU (leave the accelerator free)")
     args = ap.parse_args()
 
     if args.cpu:
@@ -107,7 +107,7 @@ def main() -> int:
     k_ref = dump_reference(binary, train, test, args.g, args.m)
     print(f"  reference kernel {k_ref.shape}")
 
-    from fastsk_tpu import FastSK, FastaUtility
+    from fastsk_jax import FastSK, FastaUtility
 
     reader = FastaUtility()
     Xtr, Ytr = reader.read_data(train)
@@ -122,7 +122,7 @@ def main() -> int:
     print(f"bit-exact: {bitexact}   max |diff|: {maxdiff:.3e}")
 
     if args.auc:
-        from fastsk_tpu.svm.linear import train_eval_linear
+        from fastsk_jax.svm.linear import train_eval_linear
 
         ntr = len(Xtr)
         for name, kmat in (("reference", k_ref), ("ours", k_ours)):
